@@ -1,6 +1,6 @@
 # Runtime image for red-gym-tpu (the reference ships an ubuntu+GL image for
 # its pyglet renderer; this stack renders host-side with matplotlib, so a
-# slim Python base suffices).  For TPU VMs install the libtpu wheel variant.
+# slim Python base suffices).  For an NVIDIA GPU install the CUDA variant.
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
@@ -11,10 +11,9 @@ WORKDIR /opt/red-gym-tpu
 COPY pyproject.toml README.md ./
 COPY red_gym_tpu ./red_gym_tpu
 COPY examples ./examples
-COPY bench.py ./
+COPY bench.py chip_smoke.py ./
 
-# CPU jax by default; on a TPU VM use:  pip install "jax[tpu]" \
-#   -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# CPU jax by default; for an NVIDIA GPU use:  pip install -e ".[gpu,render]"
 RUN pip install --no-cache-dir -e ".[render]"
 
 CMD ["python", "examples/waypoint_follow.py", "--steps", "4500"]

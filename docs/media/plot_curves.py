@@ -66,7 +66,7 @@ def main():
         for s in ax.spines.values():
             s.set_color(GRID)
     axes[0].legend(frameon=False, fontsize=9, labelcolor=TEXT)
-    fig.suptitle("PPO on TPU: 16384 envs × rollout 32, 3 seeds per config "
+    fig.suptitle("PPO: 16384 envs × rollout 32, 3 seeds per config "
                  "(thin = seeds, bold = mean)", color=TEXT, fontsize=11,
                  x=0.01, ha="left")
     fig.tight_layout(rect=(0, 0, 1, 0.93))

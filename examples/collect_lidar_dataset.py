@@ -14,8 +14,6 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-_platform.apply()
 
 import numpy as np
 import jax

@@ -1,10 +1,10 @@
 """Export a trained PPO racer as a deployable StableHLO artifact.
 
 The deployment analogue of the reference's ``torch.save(actor.state_dict(),
-"sac_actor.pth")`` (reference src/SAL.py:1017), TPU-native: the greedy
+"sac_actor.pth")`` (reference src/SAL.py:1017): the greedy
 inference head (scan, vel) -> (steer, speed) with the trained weights baked
-in is AOT-lowered for cpu+tpu and serialized as versioned StableHLO — the
-on-car runtime needs jax only, no red_gym_tpu / flax / checkpoint code.
+in is AOT-lowered for cpu+cuda and serialized as versioned StableHLO — the
+on-car runtime needs jax only, no red_gym_tpu / checkpoint code.
 
     python examples/train_ppo.py --envs 4096 --iters 60 --save ppo_ckpt
     python examples/export_policy.py --ckpt ppo_ckpt --out racer.stablehlo
@@ -19,8 +19,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from red_gym_tpu.utils import platform as _platform
-_platform.apply()
 
 import numpy as np
 
@@ -32,7 +30,7 @@ def main():
                          "random-init weights if omitted (smoke mode)")
     ap.add_argument("--out", type=str, default="racer.stablehlo")
     ap.add_argument("--beams", type=int, default=1080)
-    ap.add_argument("--platforms", type=str, default="cpu,tpu")
+    ap.add_argument("--platforms", type=str, default="cpu,cuda")
     ap.add_argument("--serve", type=str, default=None,
                     help="load an exported artifact and time inference "
                          "instead of exporting")
@@ -79,8 +77,7 @@ def main():
         env = envlib.make(map=example_map_yaml(), map_ext=".png",
                           num_agents=2, timestep=0.01,
                           integrator=Integrator.RK4, scan_mode="fast")
-        obs, *_ = env.reset(np.array([[0.7, 0.0, 1.37079632679],
-                                      [0.7, -1.0, 1.37079632679]]))
+        obs, *_ = env.reset(envlib.staggered_start_poses(2))
         speeds, crashes = [], 0
         for t in range(args.race_steps):
             scan = jnp.asarray(obs["scans"][0:1], jnp.float32)
@@ -107,11 +104,14 @@ def main():
     params = policy.init(jax.random.PRNGKey(0), scan, vel)
 
     if args.ckpt:
-        raw = ckpt.restore(args.ckpt)
+        flat = ckpt.restore(args.ckpt)
         # train_ppo saves a PPOState(params, opt_state, key); accept either
         # the full trainer state or a bare params tree
-        tree = raw.get("params", raw) if isinstance(raw, dict) else raw[0]
-        params = jax.tree.map(jnp.asarray, tree)
+        paths, treedef = jax.tree_util.tree_flatten_with_path(params)
+        keys = [jax.tree_util.keystr(p) for p, _ in paths]
+        prefix = ".params" if ".params" + keys[0] in flat else ""
+        params = jax.tree_util.tree_unflatten(
+            treedef, [jnp.asarray(flat[prefix + k]) for k in keys])
         print(f"restored weights from {args.ckpt}")
     else:
         print("WARNING: no --ckpt given, exporting random-init weights")

@@ -13,8 +13,6 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-_platform.apply()
 
 import numpy as np
 import jax
@@ -41,7 +39,7 @@ def main():
                                                dtype=jnp.float32))
 
     state, obs, *_ = envlib.reset(
-        cfg, params, jnp.asarray([[0.7, 0.0, 1.37079632679]], jnp.float32),
+        cfg, params, jnp.asarray(envlib.staggered_start_poses(1), jnp.float32),
         jax.random.PRNGKey(0))
     step = jax.jit(lambda s, a: envlib.step(cfg, params, s, a))
     raster = {m: jax.jit(lambda s, m=m: lidar_to_bitmap(

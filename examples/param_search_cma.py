@@ -1,6 +1,6 @@
 """CMA-ES lap-time parameter search with whole-population device evaluation.
 
-TPU-native counterpart of the reference's parameter-search experiment
+On-device counterpart of the reference's parameter-search experiment
 (reference: examples/config_example_map.yaml — bounds for mass/lf/tlad/vgain,
 optim_method 'CMA', popsize/budget): each CMA generation races the ENTIRE
 population in one jitted batched rollout (one env row per candidate, its own
@@ -23,6 +23,7 @@ import jax.numpy as jnp
 from red_gym_tpu.config import Integrator, SimConfig
 from red_gym_tpu.agents import pure_pursuit as pp
 from red_gym_tpu.assets import example_map_yaml, example_waypoints_csv
+from red_gym_tpu.env import staggered_start_poses
 from red_gym_tpu.tuning import search
 
 
@@ -41,7 +42,7 @@ def main():
 
     t0 = time.time()
     best, best_f = search(cfg, example_map_yaml(), wpts,
-                          start_pose=[0.7, 0.0, 1.37079632679],
+                          start_pose=staggered_start_poses(1)[0].tolist(),
                           popsize=args.popsize, generations=args.generations,
                           steps=args.steps)
     dt = time.time() - t0

@@ -16,8 +16,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-_platform.apply()
 
 import numpy as np
 import jax
@@ -27,7 +25,9 @@ from red_gym_tpu.config import Integrator, SimConfig
 from red_gym_tpu import env as envlib
 from red_gym_tpu.agents.ppo import PPO, PPOConfig
 from red_gym_tpu.parallel import sharding as sh
-from red_gym_tpu.assets import example_map_yaml
+from red_gym_tpu.assets import (example_map_yaml, raceline_poses,
+                                waypoints_csv_for)
+from red_gym_tpu.utils import runtime
 from red_gym_tpu.utils import checkpoint as ckpt
 
 
@@ -75,6 +75,7 @@ def main():
                          "loss, reward_mean, done_rate, speed_mean, "
                          "wall_s) to this CSV")
     args = ap.parse_args()
+    runtime.enable_compile_cache()
 
     cfg = SimConfig(num_agents=args.agents, num_beams=args.beams,
                     timestep=0.01, integrator=Integrator.RK4, dtype="float32",
@@ -94,31 +95,25 @@ def main():
         yamls = sorted(glob.glob(os.path.join(
             os.path.dirname(assets_file), "data", "track_*.yaml")))
         env_params = envlib.make_multimap_params(cfg, yamls)
-        starts = []
-        for y in yamls:
-            w = np.loadtxt(y.replace(".yaml", "_waypoints.csv"),
-                           delimiter=";", comments="#")
-            th = np.arctan2(w[1, 2] - w[0, 2], w[1, 1] - w[0, 1])
-            row = [[w[0, 1], w[0, 2], th],
-                   [w[8, 1], w[8, 2], th]][: args.agents]
-            starts.append(row)
+        starts = [envlib.staggered_start_poses(args.agents,
+                                               waypoints_csv_for(y))
+                  for y in yamls]
         map_idx = jnp.arange(args.envs, dtype=jnp.int32) % len(yamls)
         poses = jnp.asarray(starts, jnp.float32)[map_idx]
         print(f"multi-map: {len(yamls)} tracks, per-env assignment")
     else:
-        env_params = envlib.make_params(cfg, args.map or example_map_yaml(),
-                                        ".png")
-        start = jnp.asarray([[0.7, 0.0, 1.37079632679],
-                             [0.7, -1.0, 1.37079632679]][: args.agents],
+        map_yaml = args.map or example_map_yaml()
+        env_params = envlib.make_params(cfg, map_yaml, ".png")
+        poses = jnp.asarray(raceline_poses(args.envs, args.agents,
+                                           waypoints_csv_for(map_yaml)),
                             jnp.float32)
-        poses = jnp.tile(start, (args.envs, 1, 1))
 
     mesh = sh.make_env_mesh()
     env_params = sh.shard_params(mesh, env_params)
 
     keys = jax.random.split(jax.random.PRNGKey(args.seed), args.envs)
     # env_params must be jit ARGUMENTS, not closures: the map/range textures
-    # would otherwise be embedded as HLO constants (remote-compile 413s)
+    # would otherwise be embedded as HLO constants
     if map_idx is None:
         reset_v = jax.jit(jax.vmap(
             lambda pr, po, k: envlib.reset(cfg, pr, po, k),
@@ -138,9 +133,8 @@ def main():
     elif args.opponents == "pursuit" and args.agents > 1:
         from red_gym_tpu.agents import pure_pursuit as pp
         from red_gym_tpu.agents.ppo import pure_pursuit_opponents
-        from red_gym_tpu.assets import example_waypoints_csv
-
-        wpts = pp.load_waypoints_csv(example_waypoints_csv(), dtype=jnp.float32)
+        wpts = pp.load_waypoints_csv(waypoints_csv_for(args.map),
+                                     dtype=jnp.float32)
         opponent_plan = pure_pursuit_opponents(pp.make_params(wpts))
 
     ppo = PPO(cfg, env_params, PPOConfig(rollout_len=args.rollout),

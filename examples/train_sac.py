@@ -1,6 +1,6 @@
 """SAC training on lidar bitmaps through the path-planning env.
 
-TPU-native counterpart of the reference training loop (reference:
+On-device counterpart of the reference training loop (reference:
 src/SAL.py:975-1022): same agent hyperparameters (batch 64, update every 50
 steps after 1000, tau 0.005, gamma 0.99, alpha 0.2) but the env, rasterizer,
 MPC and replay buffer all live on device.
@@ -17,8 +17,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-_platform.apply()
 
 import jax
 import jax.numpy as jnp

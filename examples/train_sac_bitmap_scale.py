@@ -23,8 +23,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-_platform.apply()
 
 import numpy as np
 import jax
@@ -34,7 +32,8 @@ from red_gym_tpu.config import SimConfig
 from red_gym_tpu import env as envlib
 from red_gym_tpu.agents import planning_env as pe
 from red_gym_tpu.agents.sac import SAC, ReplayBuffer
-from red_gym_tpu.assets import example_map_yaml
+from red_gym_tpu.assets import (example_map_yaml, raceline_poses,
+                                waypoints_csv_for)
 from red_gym_tpu.utils.profiling import Metrics
 from red_gym_tpu.utils import checkpoint as ckpt
 
@@ -83,7 +82,8 @@ def main():
 
     cfg = SimConfig(num_agents=1, num_beams=args.beams, timestep=0.015,
                     dtype="float32")
-    params = envlib.make_params(cfg, args.map or example_map_yaml(), ".png")
+    map_yaml = args.map or example_map_yaml()
+    params = envlib.make_params(cfg, map_yaml, ".png")
     pcfg = pe.default_plan_config()._replace(
         bitmap_dims=(args.bitmap, args.bitmap))
     env = pe.PlanningEnv(cfg, params, pcfg, reward_mode=args.reward_mode)
@@ -92,12 +92,11 @@ def main():
               compute_dtype=_jnp.float32 if args.f32 else _jnp.bfloat16)
 
     e = args.envs
-    # reference start pose (SAL.py:978 uses the example map default) with a
-    # small per-env longitudinal stagger so replay sees diverse states
-    base_pose = np.array([[0.7, 0.0, 1.37079632679]], np.float32)
-    poses = np.repeat(base_pose[None], e, axis=0)
-    poses[:, 0, 0] -= 0.05 * (np.arange(e) % 8)
-    poses = jnp.asarray(poses)
+    # the map's raceline start (the reference, SAL.py:978, uses its example
+    # map's default pose), spread around the lap so replay sees diverse
+    # states
+    poses = jnp.asarray(raceline_poses(e, 1, waypoints_csv_for(map_yaml)),
+                        jnp.float32)
 
     reset_v = jax.jit(jax.vmap(env.reset, in_axes=(0, 0)))
     step_v = jax.vmap(env.step, in_axes=(0, 0))

@@ -3,7 +3,7 @@
 The reference SAC loop steps ONE env on host, with a Python deque replay and
 a host OSQP MPC in the action path (reference: src/SAL.py:975-1022) — that
 compatibility pipeline lives in examples/train_sac.py.  This version is the
-TPU-native scale-out: E envs step in parallel, every transition batch lands
+on-device scale-out: E envs step in parallel, every transition batch lands
 in the device ring buffer, and each iteration (collect N steps + N gradient
 updates) runs as a single jitted lax.scan — zero host<->device traffic
 inside an iteration.
@@ -19,8 +19,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-_platform.apply()
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +26,7 @@ import jax.numpy as jnp
 from red_gym_tpu.config import Integrator, SimConfig
 from red_gym_tpu import env as envlib
 from red_gym_tpu.agents import sac as sac_lib
-from red_gym_tpu.assets import example_map_yaml
+from red_gym_tpu.assets import example_map_yaml, raceline_poses
 from red_gym_tpu.utils import checkpoint as ckpt
 from red_gym_tpu.utils.profiling import Metrics
 
@@ -65,8 +63,7 @@ def main():
     buf = sac_lib.ReplayBuffer.create(args.capacity, (args.beams,), 2,
                                       obs_dtype=jnp.float32)
 
-    start = jnp.asarray([[0.7, 0.0, 1.37079632679]], jnp.float32)
-    poses = jnp.tile(start, (args.envs, 1, 1))
+    poses = jnp.asarray(raceline_poses(args.envs, 1), jnp.float32)
     keys = jax.random.split(jax.random.PRNGKey(0), args.envs)
     reset_v = jax.jit(jax.vmap(
         lambda pr, po, k: envlib.reset(cfg, pr, po, k), in_axes=(None, 0, 0)))

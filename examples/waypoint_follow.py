@@ -1,6 +1,6 @@
 """Pure-pursuit waypoint following on the example map.
 
-TPU-native counterpart of the reference demo (reference:
+On-device counterpart of the reference demo (reference:
 examples/waypoint_follow.py:241-290): the whole closed loop — planner +
 simulator — runs on device inside one jitted lax.scan, then the trajectory
 is (optionally) rendered host-side.
@@ -20,13 +20,12 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-_platform.apply()
 
 from red_gym_tpu.config import Integrator, SimConfig, VehicleParams  # noqa: E402
 from red_gym_tpu import env as envlib  # noqa: E402
 from red_gym_tpu.agents import pure_pursuit as pp  # noqa: E402
-from red_gym_tpu.assets import example_map_yaml, example_waypoints_csv  # noqa: E402
+from red_gym_tpu.assets import (example_map_yaml, example_waypoints_csv,  # noqa: E402
+                                waypoints_csv_for)
 
 
 def main():
@@ -44,7 +43,9 @@ def main():
     wpts = pp.load_waypoints_csv(args.waypoints, dtype=jnp.float32)
     ppp = pp.make_params(wpts)
 
-    start = jnp.asarray([[0.7, 0.0, 1.37079632679]], dtype=jnp.float32)
+    start = jnp.asarray(envlib.staggered_start_poses(
+                            1, waypoints_csv_for(args.map)),
+                        dtype=jnp.float32)
 
     def body(carry, _):
         state, obs = carry
@@ -94,7 +95,7 @@ def main():
                    extent=[ox, ox + w * res, oy, oy + h * res])
         n = done_step if dones.any() else args.steps
         plt.plot(np.asarray(xs)[:n], np.asarray(ys)[:n], "r-", lw=1)
-        plt.title("pure pursuit on example_map")
+        plt.title("pure pursuit on " + os.path.basename(args.map))
         plt.savefig(args.render, dpi=120)
         print("wrote", args.render)
 

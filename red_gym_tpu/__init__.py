@@ -1,10 +1,10 @@
-"""red_gym_tpu — a TPU-native F1TENTH racing environment + RL stack in JAX.
+"""red_gym_tpu — an F1TENTH racing environment + RL stack in JAX.
 
 A from-scratch re-design of WE-Autopilot/red_gym (the F1TENTH gym fork plus
 the club's SAC/MPC training stack) where the entire simulator is a pure,
 jit-compiled function over pytrees: vehicle dynamics, lidar raycasting,
 collision checks, lap logic and resets all vmapped over thousands of parallel
-envs and sharded across TPU meshes with jax collectives.
+envs on one GPU and sharded across several with jax collectives.
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,11 @@
-"""Soft Actor-Critic over lidar bitmaps, in flax/optax.
+"""Soft Actor-Critic over lidar bitmaps, in plain JAX + optax.
 
 Re-design of the reference training stack (reference: src/SAL.py:390-580):
 same CNN actor (3 conv -> fc -> tanh-squashed diagonal Gaussian), twin CNN
 critics, soft target updates — but the replay buffer lives on device as a
 fixed-size ring of arrays, and the entire update step is one jitted program,
-so training runs with zero host<->device traffic per step.  On TPU the conv
-trunks run in bfloat16 on the MXU with float32 accumulation.
+so training runs with zero host<->device traffic per step.  The conv trunks
+run in bfloat16 with float32 parameters.
 
 Hyperparameters match SAL.py:478-497: gamma 0.99, tau 0.005, alpha 0.2,
 lr 3e-4 for actor and critics, batch 64, log_std clamped to [-20, 2].
@@ -13,46 +13,50 @@ lr 3e-4 for actor and critics, batch 64, log_std clamped to [-20, 2].
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 import optax
 
+from red_gym_tpu.agents import nn
 
+
+relu = jax.nn.relu
+
+
+@dataclasses.dataclass(frozen=True)
 class ConvTrunk(nn.Module):
     """The SAL CNN feature stack (SAL.py:397-400): 8x8/4, 4x4/2, 3x3/1."""
 
     compute_dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x):
+    def forward(self, ctx, x):
         # x: (B, H, W) uint8 or float -> (B, H, W, 1) in [0, 1]
-        x = x.astype(self.compute_dtype) / 255.0
+        cd = self.compute_dtype
+        x = x.astype(cd) / 255.0
         x = x[..., None]
-        x = nn.relu(nn.Conv(16, (8, 8), strides=(4, 4), padding="VALID",
-                            dtype=self.compute_dtype)(x))
-        x = nn.relu(nn.Conv(32, (4, 4), strides=(2, 2), padding="VALID",
-                            dtype=self.compute_dtype)(x))
-        x = nn.relu(nn.Conv(32, (3, 3), strides=(1, 1), padding="VALID",
-                            dtype=self.compute_dtype)(x))
+        x = relu(nn.conv(ctx, x, 16, (8, 8), (4, 4), cd))
+        x = relu(nn.conv(ctx, x, 32, (4, 4), (2, 2), cd))
+        x = relu(nn.conv(ctx, x, 32, (3, 3), (1, 1), cd))
         return x.reshape((x.shape[0], -1))
 
 
+@dataclasses.dataclass(frozen=True)
 class Actor(nn.Module):
     """Tanh-squashed Gaussian policy (SAL.py:390-421)."""
 
     action_dim: int = 32
     compute_dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x):
-        h = ConvTrunk(self.compute_dtype)(x)
-        h = nn.relu(nn.Dense(512, dtype=self.compute_dtype)(h))
-        mean = nn.Dense(self.action_dim, dtype=jnp.float32)(h.astype(jnp.float32))
-        log_std = nn.Dense(self.action_dim, dtype=jnp.float32)(h.astype(jnp.float32))
+    def forward(self, ctx, x):
+        h = nn.submodule(ctx, ConvTrunk(self.compute_dtype), x)
+        h = relu(nn.dense(ctx, h, 512, self.compute_dtype))
+        h = h.astype(jnp.float32)
+        mean = nn.dense(ctx, h, self.action_dim)
+        log_std = nn.dense(ctx, h, self.action_dim)
         return mean, jnp.clip(log_std, -20.0, 2.0)
 
 
@@ -70,17 +74,17 @@ def sample_action(actor_params, actor: Actor, obs, key):
     return y_t, log_prob
 
 
+@dataclasses.dataclass(frozen=True)
 class Critic(nn.Module):
     """Q(s, a) with the shared trunk shape (SAL.py:423-442)."""
 
     compute_dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x, action):
-        h = ConvTrunk(self.compute_dtype)(x)
+    def forward(self, ctx, x, action):
+        h = nn.submodule(ctx, ConvTrunk(self.compute_dtype), x)
         h = jnp.concatenate([h.astype(jnp.float32), action], axis=-1)
-        h = nn.relu(nn.Dense(512, dtype=self.compute_dtype)(h))
-        return nn.Dense(1, dtype=jnp.float32)(h.astype(jnp.float32))
+        h = relu(nn.dense(ctx, h, 512, self.compute_dtype))
+        return nn.dense(ctx, h.astype(jnp.float32), 1)
 
 
 class ReplayBuffer(NamedTuple):
@@ -144,6 +148,7 @@ class ReplayBuffer(NamedTuple):
                 self.next_obs[idx], self.done[idx])
 
 
+@dataclasses.dataclass(frozen=True)
 class ScanTrunk(nn.Module):
     """MLP features over strided log-compressed lidar ranges — the
     bandwidth-light observation for SAC at scale (the bitmap CNN stays for
@@ -153,14 +158,14 @@ class ScanTrunk(nn.Module):
     stride: int = 8
     compute_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, scan):
-        x = jnp.log1p(scan[..., :: self.stride].astype(self.compute_dtype))
-        x = nn.relu(nn.Dense(self.hidden, dtype=self.compute_dtype)(x))
-        x = nn.relu(nn.Dense(self.hidden, dtype=self.compute_dtype)(x))
-        return x
+    def forward(self, ctx, scan):
+        cd = self.compute_dtype
+        x = jnp.log1p(scan[..., :: self.stride].astype(cd))
+        x = relu(nn.dense(ctx, x, self.hidden, cd))
+        return relu(nn.dense(ctx, x, self.hidden, cd))
 
 
+@dataclasses.dataclass(frozen=True)
 class ScanActor(nn.Module):
     """Tanh-squashed Gaussian policy over raw scans (drop-in for Actor)."""
 
@@ -169,14 +174,16 @@ class ScanActor(nn.Module):
     stride: int = 8
     compute_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, scan):
-        h = ScanTrunk(self.hidden, self.stride, self.compute_dtype)(scan)
-        mean = nn.Dense(self.action_dim, dtype=jnp.float32)(h.astype(jnp.float32))
-        log_std = nn.Dense(self.action_dim, dtype=jnp.float32)(h.astype(jnp.float32))
+    def forward(self, ctx, scan):
+        h = nn.submodule(
+            ctx, ScanTrunk(self.hidden, self.stride, self.compute_dtype), scan)
+        h = h.astype(jnp.float32)
+        mean = nn.dense(ctx, h, self.action_dim)
+        log_std = nn.dense(ctx, h, self.action_dim)
         return mean, jnp.clip(log_std, -20.0, 2.0)
 
 
+@dataclasses.dataclass(frozen=True)
 class ScanCritic(nn.Module):
     """Q(scan, a) (drop-in for Critic)."""
 
@@ -184,12 +191,12 @@ class ScanCritic(nn.Module):
     stride: int = 8
     compute_dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, scan, action):
-        h = ScanTrunk(self.hidden, self.stride, self.compute_dtype)(scan)
+    def forward(self, ctx, scan, action):
+        h = nn.submodule(
+            ctx, ScanTrunk(self.hidden, self.stride, self.compute_dtype), scan)
         h = jnp.concatenate([h.astype(jnp.float32), action], axis=-1)
-        h = nn.relu(nn.Dense(self.hidden, dtype=self.compute_dtype)(h))
-        return nn.Dense(1, dtype=jnp.float32)(h.astype(jnp.float32))
+        h = relu(nn.dense(ctx, h, self.hidden, self.compute_dtype))
+        return nn.dense(ctx, h.astype(jnp.float32), 1)
 
 
 class SACState(NamedTuple):

@@ -31,20 +31,6 @@ from red_gym_tpu.maps.loader import TrackMap, load_map
 from red_gym_tpu.ops import agent_scan, collision as col, dynamics as dyn, integrate
 from red_gym_tpu.ops import scan as scan_ops, scan_fast
 
-import os as _os
-
-def _fast_scan_entry():
-    # Default: the plain vmapped trace_fast_mxu.  The manually-flattened
-    # custom_vmap entry (scan_fast.trace_fast_mxu_batched) was built on the
-    # hypothesis that collapsing (env, agent) before the pipeline would
-    # clean up vmap-induced layouts — MEASURED SLOWER on chip (A/B/A at 16k
-    # envs: flat 3.49/3.53M vs vmapped 4.09M env-steps/s, 2026-08-20): XLA
-    # handles the batched layouts better than the flat reshape boundary.
-    # Kept behind RGT_FLAT_SCAN=1 as the recorded negative result.
-    if _os.environ.get("RGT_FLAT_SCAN", "0") == "1":
-        return scan_fast.trace_fast_mxu_batched
-    return scan_fast.trace_fast_mxu
-
 
 class EnvParams(NamedTuple):
     """Everything the step function reads but does not write."""
@@ -114,7 +100,6 @@ def make_params(cfg: SimConfig, map_yaml_path: str, map_ext: str = ".png",
     if cfg.scan_mode == "fast":
         rtex = scan_fast.build_range_texture(tmap, cfg)
     pool = _make_noise_pool(cfg)
-    tables = tables._replace(noise_pool_ext=_pool_ext(cfg, pool))
     return EnvParams(vehicle=vehicle, tables=tables, tmap=tmap, rtex=rtex,
                      noise_pool=pool)
 
@@ -124,11 +109,10 @@ def _make_noise_pool(cfg: SimConfig):
 
     Content is keyed by a fixed seed: determinism of a run stays governed
     by the per-env state rng, which selects rows.  STORAGE is bfloat16 in
-    float32 runs: the per-step (E, B) noise slab is pure HBM round trip
-    (84% of bandwidth for its phase, tools/roofline.py) and a bf16 ulp on
-    a sigma = 1 cm perturbation is ~0.02 mm — far below the sensor noise
-    it implements; compute upcasts on read."""
-    if cfg.noise_mode not in ("pool", "pool_rot") or cfg.scan_noise_std <= 0:
+    float32 runs: the per-step (E, B) noise slab is pure memory traffic
+    and a bf16 ulp on a sigma = 1 cm perturbation is ~0.02 mm — far below
+    the sensor noise it implements; compute upcasts on read."""
+    if cfg.noise_mode != "pool" or cfg.scan_noise_std <= 0:
         return None
     key = jax.random.PRNGKey(0x5EED)
     pool = cfg.scan_noise_std * jax.random.normal(
@@ -136,25 +120,6 @@ def _make_noise_pool(cfg: SimConfig):
     if cfg.jdtype == jnp.float32:
         pool = pool.astype(jnp.bfloat16)
     return pool
-
-
-def _pool_ext(cfg: SimConfig, pool):
-    """Wrap-extended pool for noise_mode='pool_rot': the megakernel slices
-    a contiguous tile of envs at row offset (env + off) % rows, and the
-    appended copy of the first tile_envs rows keeps that slice contiguous
-    across the modulo seam (no in-kernel two-load wrap).
-
-    Returns None — degrading pool_rot to the plain pool row-pick — when
-    the kernel's tiling constraints don't hold: rows and the per-tile env
-    count must be multiples of 16 (Mosaic sublane alignment) and the pool
-    must cover one tile of envs (pallas_scan mega asserts)."""
-    if cfg.noise_mode != "pool_rot" or pool is None:
-        return None
-    tile_envs = 256 // cfg.num_agents if 256 % cfg.num_agents == 0 else 0
-    if (tile_envs == 0 or tile_envs % 16 or cfg.noise_pool_rows % 16
-            or cfg.noise_pool_rows < tile_envs):
-        return None
-    return jnp.concatenate([pool, pool[:tile_envs]], axis=0)
 
 
 def make_multimap_params(cfg: SimConfig, map_yaml_paths, map_ext: str = ".png",
@@ -190,7 +155,6 @@ def make_multimap_params(cfg: SimConfig, map_yaml_paths, map_ext: str = ".png",
             [scan_fast.pad_texture(scan_fast.build_range_texture(m, cfg),
                                    hc_pad, wc_pad) for m in raw])
     pool = _make_noise_pool(cfg)
-    tables = tables._replace(noise_pool_ext=_pool_ext(cfg, pool))
     return EnvParams(vehicle=vehicle, tables=tables, tmap=tmap, rtex=rtex,
                      noise_pool=pool)
 
@@ -231,28 +195,6 @@ def init_state(cfg: SimConfig, poses, key, map_idx=None) -> EnvState:
     )
 
 
-def _use_state_kernel(cfg: SimConfig, params: EnvParams, midx) -> bool:
-    """Resolution of cfg.state_kernel (see SimConfig): scope check +
-    capability record / override."""
-    if cfg.state_kernel == "off":
-        return False
-    from red_gym_tpu.ops import pallas_state
-
-    if not pallas_state.supported(cfg, params, midx):
-        if cfg.state_kernel == "on":
-            raise ValueError(
-                "state_kernel='on' needs the fused megakernel scope: "
-                "scan_mode='fast', rt_spatial='nearest1', dtype='float32', "
-                "steer_delay=2, default PID, single map, scalar vehicle "
-                "params (pallas_state.supported)")
-        return False
-    if cfg.state_kernel == "on":
-        return True
-    from red_gym_tpu.utils import capability
-
-    return capability.state_kernel_enabled()
-
-
 def _steer_delay(cfg: SimConfig, state: EnvState, raw_steer):
     """Two-deep steering delay line (base_classes.py:268-276): the first
     `steer_delay` steps see zero steer, afterwards the oldest buffered value."""
@@ -271,42 +213,20 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions):
     actions = jnp.asarray(actions, dtype=cfg.jdtype)
     raw_steer, vel_cmd = actions[:, 0], actions[:, 1]
 
-    pregeo = None
-    if _use_state_kernel(cfg, params, state.map_idx):
-        # ONE Pallas launch for the whole pre-scan chain (steer delay,
-        # PID, RK4, yaw wrap, scan-geometry prep) on a fields-on-sublanes
-        # layout — replaces ~1.4 ms/step of small XLA kernels and layout
-        # copies at 16k envs (pallas_state module docstring)
-        from red_gym_tpu.ops import pallas_state
+    steer, steer_buf, steer_cnt = _steer_delay(cfg, state, raw_steer)
 
-        veh, geo_f, geo_i = pallas_state.pack_rows(params, cfg)
-        o = pallas_state.prestep(cfg, state.x, state.steer_buf,
-                                 state.steer_cnt, actions,
-                                 veh, geo_f, geo_i)          # 16 x (A,)
-        xt = o[0:7]
-        x = jnp.stack(xt, axis=-1)
-        steer_buf = jnp.stack([o[7], o[8]], axis=-1)
-        steer_cnt = o[9].astype(jnp.int32)
-        pregeo = (o[15].astype(jnp.int32)[:, None],          # texture rows
-                  o[14][:, None],                            # in-bounds wgt
-                  o[10][:, None], o[11][:, None],            # dx, dy
-                  o[12], o[13])                              # f_s, i_f
-    else:
-        steer, steer_buf, steer_cnt = _steer_delay(cfg, state, raw_steer)
-
-        # pluggable low-level controller (fork delta, reference
-        # base_classes.py:68,91,280); default = the reference PID
-        controller = cfg.speed_controller or dyn.pid
-        accl, sv = controller(vel_cmd, steer, state.x[:, 3], state.x[:, 2],
-                              p.sv_max, p.a_max, p.v_max, p.v_min)
-        # component-tuple (struct-of-arrays) integration: the whole RK4
-        # step fuses into a few XLA kernels instead of ~50 stack/slice
-        # fusions
-        xt = tuple(state.x[:, i] for i in range(7))
-        xt = integrate.integrate_t(cfg.integrator, dyn.vehicle_dynamics_st_t,
-                                   xt, sv, accl, cfg.timestep, p)
-        xt = xt[:4] + (integrate.wrap_yaw(xt[4]),) + xt[5:]
-        x = jnp.stack(xt, axis=-1)
+    # pluggable low-level controller (fork delta, reference
+    # base_classes.py:68,91,280); default = the reference PID
+    controller = cfg.speed_controller or dyn.pid
+    accl, sv = controller(vel_cmd, steer, state.x[:, 3], state.x[:, 2],
+                          p.sv_max, p.a_max, p.v_max, p.v_min)
+    # component-tuple (struct-of-arrays) integration: the whole RK4 step
+    # fuses into a few XLA kernels instead of ~50 stack/slice fusions
+    xt = tuple(state.x[:, i] for i in range(7))
+    xt = integrate.integrate_t(cfg.integrator, dyn.vehicle_dynamics_st_t,
+                               xt, sv, accl, cfg.timestep, p)
+    xt = xt[:4] + (integrate.wrap_yaw(xt[4]),) + xt[5:]
+    x = jnp.stack(xt, axis=-1)
 
     poses = jnp.stack([xt[0], xt[1], xt[4]], axis=-1)
 
@@ -316,13 +236,9 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions):
     rng, sub = jax.random.split(state.rng)
 
     def _noise_row(dtype=None):
-        if (cfg.noise_mode in ("pool", "pool_rot")
-                and params.noise_pool is not None):
+        if cfg.noise_mode == "pool" and params.noise_pool is not None:
             # one row pick per env per step: contiguous fetch, no fresh
-            # transcendentals (see SimConfig.noise_mode).  dtype=None keeps
-            # the pool's bfloat16 STORAGE dtype — the fused kernels read
-            # the slab directly and upcast in VMEM, halving the per-step
-            # (E, B) HBM round trip
+            # normals (see SimConfig.noise_mode)
             r = jax.random.randint(sub, (), 0, cfg.noise_pool_rows)
             # randint(0, rows) is in-bounds by construction:
             # promise_in_bounds drops the clamp/select pass
@@ -332,86 +248,33 @@ def sim_step(cfg: SimConfig, params: EnvParams, state: EnvState, actions):
             sub, (cfg.num_beams,),
             dtype=cfg.jdtype if dtype is None else dtype)
 
-    # body vertices serve the opponent ray cast (fused or XLA) below; the
-    # body-collision SAT runs straight from poses
-    verts = col.get_vertices(poses, p.length, p.width)
-
-    ttc_hit = None
-    opp_fused = False
-    if cfg.scan_mode == "fast" and (scan_fast.use_fused_ttc(cfg)
-                                    or scan_fast.use_megakernel(cfg)):
-        # noise add + wall-iTTC fused into the scan epilogue kernel
-        # (SimConfig.fuse_scan_ttc); same RNG stream, same semantics as the
-        # unfused path below — iTTC sees the noisy pre-opponent scan.
-        # With fuse_scan_opp resolving on, the opponent ray cast rides the
-        # same kernel (the scan tensor then hits HBM exactly once).
-        dt = jnp.float32 if cfg.dtype == "float32" else jnp.float64
-        if (cfg.noise_mode == "pool_rot" and cfg.scan_noise_std > 0
-                and params.noise_pool is not None
-                and params.tables.noise_pool_ext is not None
-                and scan_fast.use_megakernel(cfg)):
-            # rotation-addressed pool: pass the per-env row DRAW (same
-            # randint stream as the pool pick) instead of the fetched row;
-            # the megakernel reads pool row (env + draw[0]) % rows from
-            # the VMEM-resident pool (tables.noise_pool_ext) — the (E, B)
-            # slab never materializes in HBM
-            noise = jax.random.randint(
-                sub, (1,), 0, cfg.noise_pool_rows, jnp.int32)
-        else:
-            noise = (_noise_row() if cfg.scan_noise_std > 0
-                     else jnp.zeros((cfg.num_beams,), dt))
-        fused = (noise, xt[3])
-        opp_on = (scan_fast.use_fused_opp_mega(cfg)
-                  if scan_fast.use_megakernel(cfg)
-                  else scan_fast.use_fused_opp(cfg))
-        if opp_on:
-            opp = agent_scan.opponent_slab_scalars(poses, verts,
-                                                   params.tables)
-            fused = (noise, xt[3], opp)
-            opp_fused = True
-        if pregeo is not None:
-            # geometry prep already computed in the fused state kernel;
-            # the flat-scan entry doesn't thread it (recorded-negative
-            # path), so call the vmapped trace directly
-            scans, hit01 = scan_fast.trace_fast_mxu(
-                poses, params.tables, params.tmap, params.rtex, cfg,
-                midx=state.map_idx, fused_ttc=fused, pregeo=pregeo)
-        else:
-            scans, hit01 = _fast_scan_entry()(
-                poses, params.tables, params.tmap, params.rtex, cfg,
-                midx=state.map_idx, fused_ttc=fused)
-        ttc_hit = (hit01 > 0) & (xt[3] != 0.0)
-    elif cfg.scan_mode == "fast":
-        scans = _fast_scan_entry()(
+    if cfg.scan_mode == "fast":
+        scans = scan_fast.trace_fast_mxu(
             poses, params.tables, params.tmap, params.rtex, cfg,
             midx=state.map_idx)
     else:
         scans = scan_ops.trace(poses, params.tables, params.tmap, cfg,
                                midx=state.map_idx)
-    if ttc_hit is None and cfg.scan_noise_std > 0:
+    if cfg.scan_noise_std > 0:
         scans = scans + _noise_row(scans.dtype)[None, :]
 
     # pairwise body collision (base_classes.py:529-543) — rectangle SAT
     # straight from poses; same boolean as collision_multiple, ~30 fused
-    # scalar ops instead of tiny padded einsums (2.4 ms/step -> noise at
-    # 16k envs)
+    # scalar ops instead of tiny padded einsums
     body_hits = col.pairwise_hits_from_poses(
         poses, p.length, p.width).astype(x.dtype)
 
     # iTTC against walls -> freeze dynamic state (base_classes.py:227-252);
-    # single fused elementwise mask, not a scatter-then-select (already
-    # computed in-kernel when the fused epilogue is active above)
-    if ttc_hit is None:
-        ttc_hit = agent_scan.check_ttc(scans, x[:, 3], params.tables,
-                                       cfg.ttc_thresh)
+    # single fused elementwise mask, not a scatter-then-select
+    ttc_hit = agent_scan.check_ttc(scans, x[:, 3], params.tables,
+                                   cfg.ttc_thresh)
     freeze = ttc_hit[:, None] & (jnp.arange(x.shape[-1]) >= 3)
     x = jnp.where(freeze, 0.0, x)
 
-    # opponent ray casting on the fused scans (base_classes.py:204-225) —
-    # already applied in-kernel when the opp-fused epilogue was active
-    if not opp_fused:
-        scans = agent_scan.ray_cast_all_opponents(poses, scans, verts,
-                                                  params.tables)
+    # opponent ray casting on the fused scans (base_classes.py:204-225)
+    verts = col.get_vertices(poses, p.length, p.width)
+    scans = agent_scan.ray_cast_all_opponents(poses, scans, verts,
+                                              params.tables)
 
     collisions = jnp.maximum(body_hits, ttc_hit.astype(body_hits.dtype))
 
@@ -488,13 +351,15 @@ def reset(cfg: SimConfig, params: EnvParams, poses, key, map_idx=None):
     return step(cfg, params, state, actions)
 
 
-def staggered_start_poses(num_agents: int) -> np.ndarray:
-    """Default (A, 3) grid spawn on the example map: agents staggered in
-    0.6 m ranks behind the reference's example start pose
-    (reference examples/config_example_map.yaml sx/sy/stheta).  The shared
-    default of the gymnasium adapters and bench.py."""
-    return np.array([[0.7 - 0.6 * (i // 2), -1.0 * (i % 2), 1.37079632679]
-                     for i in range(num_agents)])
+def staggered_start_poses(num_agents: int,
+                          waypoints_csv: Optional[str] = None) -> np.ndarray:
+    """Default (A, 3) grid spawn: agents on consecutive ranks of a raceline
+    at its first waypoint (the default map's unless ``waypoints_csv`` names
+    another; see assets.raceline_poses).  The shared default of the
+    gymnasium adapters and the examples."""
+    from red_gym_tpu import assets
+
+    return assets.raceline_poses(1, num_agents, waypoints_csv)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -531,6 +396,7 @@ class F110Env:
         else:
             vehicle = VehicleParams.default(self.cfg.jdtype)
         map_yaml = f"{map}.yaml" if map and not map.endswith(".yaml") else map
+        self.map_yaml = map_yaml
         self.params = make_params(self.cfg, map_yaml, map_ext, vehicle, tmap=tmap)
         self.seed = seed
         self.state: EnvState | None = None

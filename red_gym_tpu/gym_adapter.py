@@ -62,7 +62,8 @@ class F110GymnasiumEnv(gymnasium.Env):
     num_agents, timestep, ego_idx, integrator, fov, seed, plus every
     SimConfig field).  ``reset`` takes the (num_agents, 3) start poses via
     ``options={"poses": ...}``; without them each agent spawns staggered
-    behind the reference's example start pose.
+    on consecutive ranks of
+    the map's raceline (``env.staggered_start_poses``).
     """
 
     metadata = {"render_modes": ["human", "human_fast", "rgb_array"]}
@@ -87,7 +88,10 @@ class F110GymnasiumEnv(gymnasium.Env):
             self.env.seed = seed
         poses = None if options is None else options.get("poses")
         if poses is None:
-            poses = staggered_start_poses(self.env.cfg.num_agents)
+            from red_gym_tpu.assets import waypoints_csv_for
+
+            poses = staggered_start_poses(
+                self.env.cfg.num_agents, waypoints_csv_for(self.env.map_yaml))
         obs, _reward, _done, info = self.env.reset(np.asarray(poses))
         return self._obs(obs), info
 

@@ -44,8 +44,8 @@ class F110VectorEnv(VectorEnv):
     timestep/params/multi-map ``map`` lists/``randomize_starts``/every
     SimConfig field).  ``reset`` takes start poses via
     ``options={"poses": ...}`` ((A, 3) broadcast to all envs, or (E, A, 3));
-    without them agents spawn staggered behind the reference's example
-    start pose.
+    without them agents spawn on consecutive ranks of the (first) map's
+    raceline (``env.staggered_start_poses``).
     """
 
     metadata = {"autoreset_mode": AutoresetMode.SAME_STEP}
@@ -55,6 +55,10 @@ class F110VectorEnv(VectorEnv):
         self.num_envs = int(num_envs)
         self.vec = VecF110Env(num_envs=self.num_envs,
                               return_final_obs=True, **kwargs)
+        first = kwargs.get("map")
+        first = first[0] if isinstance(first, (list, tuple)) else first
+        self._map_yaml = (first if not first or first.endswith(".yaml")
+                          else f"{first}.yaml")
         cfg = self.vec.cfg
         self.single_action_space = action_space_box(self.vec.params.vehicle,
                                                     cfg.num_agents)
@@ -76,7 +80,10 @@ class F110VectorEnv(VectorEnv):
             self.vec._key = jax.random.PRNGKey(seed)
         poses = None if options is None else options.get("poses")
         if poses is None:
-            poses = staggered_start_poses(self.vec.cfg.num_agents)
+            from red_gym_tpu.assets import waypoints_csv_for
+
+            poses = staggered_start_poses(self.vec.cfg.num_agents,
+                                          waypoints_csv_for(self._map_yaml))
         obs, _reward, _done, _info = self.vec.reset(np.asarray(poses))
         return self._np_obs(obs), {}
 

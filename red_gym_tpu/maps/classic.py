@@ -27,8 +27,6 @@ import argparse
 import os
 
 import numpy as np
-import yaml
-from PIL import Image
 
 CLASSIC_MAPS = ("berlin", "skirk", "vegas", "levine", "stata_basement")
 
@@ -57,6 +55,8 @@ def import_classic_map(name: str, source_dir: str, dest_dir: str) -> str:
     src_yaml = os.path.join(source_dir, f"{name}.yaml")
     if not os.path.isfile(src_yaml):
         raise FileNotFoundError(src_yaml)
+    import yaml                 # offline converter: PIL/yaml stay optional
+    from PIL import Image
     with open(src_yaml) as f:
         meta = yaml.safe_load(f)
 

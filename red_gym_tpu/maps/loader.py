@@ -13,12 +13,12 @@ texture and different envs can carry different maps.
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import jax.numpy as jnp
-import yaml
-from PIL import Image
 
 from red_gym_tpu.native import edt
 
@@ -42,11 +42,110 @@ class TrackMap(NamedTuple):
     width: jnp.ndarray       # true cols (<= dt.shape[1])
 
 
+def parse_map_yaml(text: str) -> dict:
+    """The ROS map-server yaml keys the loader reads (``image``,
+    ``resolution``, ``origin``, ``negate``, ``occupied_thresh``,
+    ``free_thresh``) from a flat ``key: value`` document.  Values are
+    numbers, a ``[x, y, yaw]`` list, or bare/quoted strings; ``#`` starts a
+    comment.  Unknown keys are kept as strings."""
+    meta = {}
+    for line in text.splitlines():
+        line = line.split("#", 1)[0].strip()
+        if not line:
+            continue
+        key, sep, val = line.partition(":")
+        if not sep:
+            raise ValueError(f"map yaml: expected 'key: value', got {line!r}")
+        key, val = key.strip(), val.strip()
+        if val.startswith("[") and val.endswith("]"):
+            meta[key] = [float(v) for v in val[1:-1].split(",") if v.strip()]
+            continue
+        try:
+            meta[key] = float(val)
+        except ValueError:
+            meta[key] = val.strip("'\"")
+    for req in ("resolution", "origin"):
+        if req not in meta:
+            raise ValueError(f"map yaml lacks {req!r}")
+    return meta
+
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}     # grey, RGB, RGBA (8-bit each)
+
+
+def _unfilter_row(ftype: int, row: np.ndarray, prev: np.ndarray, bpp: int):
+    """Undo one scanline's PNG filter (RFC 2083 sec. 6) in place."""
+    if ftype == 0:
+        return row
+    if ftype == 1:      # Sub: running sum along each channel, mod 256
+        return np.cumsum(row.reshape(-1, bpp), axis=0,
+                         dtype=np.uint8).reshape(-1)
+    if ftype == 2:      # Up
+        return row + prev
+    if ftype not in (3, 4):
+        raise ValueError(f"PNG: unknown filter type {ftype}")
+    out = row.astype(np.int32)
+    up = prev.astype(np.int32)
+    for i in range(out.size):
+        a = int(out[i - bpp]) if i >= bpp else 0
+        b = int(up[i])
+        if ftype == 3:  # Average
+            out[i] = (out[i] + ((a + b) >> 1)) & 0xFF
+            continue
+        c = int(up[i - bpp]) if i >= bpp else 0   # Paeth
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+        out[i] = (out[i] + pred) & 0xFF
+    return out.astype(np.uint8)
+
+
+def decode_png(path: str) -> np.ndarray:
+    """Decode an 8-bit greyscale, RGB or RGBA non-interlaced PNG with zlib
+    alone.  Returns (H, W) uint8 for greyscale, (H, W, C) otherwise; any
+    other format (palette, 16-bit, grey+alpha, interlaced) is refused."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        ctype = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if ctype == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, color, _comp, _filt, interlace = hdr
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise ValueError(
+            f"{path}: unsupported PNG (bit depth {depth}, color type "
+            f"{color}, interlace {interlace}); only 8-bit non-interlaced "
+            f"greyscale, RGB or RGBA is decoded")
+    bpp = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = w * bpp + 1
+    if raw.size != h * stride:
+        raise ValueError(f"{path}: truncated PNG image data")
+    raw = raw.reshape(h, stride)
+    img = np.empty((h, w * bpp), np.uint8)
+    prev = np.zeros(w * bpp, np.uint8)
+    for r in range(h):
+        prev = img[r] = _unfilter_row(int(raw[r, 0]), raw[r, 1:], prev, bpp)
+    return img.reshape(h, w) if bpp == 1 else img.reshape(h, w, bpp)
+
+
 def load_map_image(image_path: str) -> np.ndarray:
     """Image -> binarized float64 occupancy grid, reference pipeline
     (laser_models.py:398-404): flip top-bottom, threshold at 128."""
-    img = np.array(Image.open(image_path).transpose(Image.FLIP_TOP_BOTTOM))
-    img = img.astype(np.float64)
+    img = decode_png(image_path)[::-1].astype(np.float64)
     if img.ndim == 3:  # RGB(A) maps: reference relies on grayscale; take ch 0
         img = img[..., 0]
     img = np.where(img <= 128.0, 0.0, 255.0)
@@ -68,7 +167,7 @@ def load_map(map_yaml_path: str, map_ext: str = ".png", dtype=jnp.float32,
     stay on device; see tests/test_edt.py for parity).
     """
     with open(map_yaml_path) as f:
-        meta = yaml.safe_load(f)
+        meta = parse_map_yaml(f.read())
     resolution = float(meta["resolution"])
     origin = meta["origin"]
 

@@ -17,7 +17,6 @@ import argparse
 import os
 
 import numpy as np
-from PIL import Image
 
 
 def _periodic_smooth(xy: np.ndarray, harmonics: int = 8) -> np.ndarray:
@@ -98,6 +97,8 @@ def speed_profile(center: np.ndarray, v_max: float = 7.0, v_min: float = 2.5,
 def save_track(outdir: str, name: str, center: np.ndarray, img: np.ndarray,
                origin, resolution: float = 0.0625):
     os.makedirs(outdir, exist_ok=True)
+    from PIL import Image       # offline tool: PIL stays optional
+
     Image.fromarray(np.flipud(img)).save(os.path.join(outdir, f"{name}.png"))
     with open(os.path.join(outdir, f"{name}.yaml"), "w") as f:
         f.write(f"image: {name}.png\n"

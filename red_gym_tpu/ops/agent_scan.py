@@ -102,46 +102,6 @@ def blocked_view_mask(pose, vertices, tables: ScanTables):
     return (beam_idx >= lo[..., None]) & (beam_idx <= hi[..., None])
 
 
-def opponent_slab_scalars(poses, all_vertices, tables: ScanTables):
-    """Per-agent packed scalars for the IN-KERNEL opponent ray cast
-    (ops/pallas_scan.theta_shuffle_blend_edge_ttc_opp).
-
-    poses (A, 3), all_vertices (A, 4, 2) -> (A, 10 * (A-1)) with 10 floats
-    per opponent (i+k) % A, k = 1..A-1:
-    [lo, hi, a_u, b_u, a_w, b_w, o_u, o_w, hu, hw], where the beam
-    direction in the opponent's box frame is d_u[b] = a_u cos_b + b_u sin_b
-    (the agent's heading rotation folded into the box axes — algebraically
-    identical to ray_cast_opponent's dirs . u, associated differently) and
-    (lo, hi) is the blocked_view_window.  All the per-beam work then
-    happens in the kernel against the static cos/sin tables.
-    """
-    a_n = poses.shape[0]
-    ct, st = jnp.cos(poses[..., 2]), jnp.sin(poses[..., 2])       # (A,)
-    packs = []
-    for k in range(1, a_n):
-        verts = jnp.roll(all_vertices, -k, axis=0)
-        lo, hi = blocked_view_window(poses, verts, tables)
-        center = jnp.mean(verts, axis=-2)                          # (A, 2)
-        e_l = verts[..., 3, :] - verts[..., 0, :]
-        e_w = verts[..., 0, :] - verts[..., 1, :]
-        len_l = jnp.linalg.norm(e_l, axis=-1)
-        len_w = jnp.linalg.norm(e_w, axis=-1)
-        u = e_l / len_l[..., None]
-        w = e_w / len_w[..., None]
-        o = poses[..., 0:2] - center
-        o_u = jnp.sum(o * u, axis=-1)
-        o_w = jnp.sum(o * w, axis=-1)
-        a_u = u[..., 0] * ct + u[..., 1] * st
-        b_u = -u[..., 0] * st + u[..., 1] * ct
-        a_w = w[..., 0] * ct + w[..., 1] * st
-        b_w = -w[..., 0] * st + w[..., 1] * ct
-        packs.append(jnp.stack(
-            [lo.astype(poses.dtype), hi.astype(poses.dtype),
-             a_u, b_u, a_w, b_w, o_u, o_w, 0.5 * len_l, 0.5 * len_w],
-            axis=-1))                                              # (A, 10)
-    return jnp.concatenate(packs, axis=-1)                         # (A, 10K)
-
-
 def beam_dirs(pose_theta, tables: ScanTables):
     """World-frame unit direction of every beam: (...,) -> (..., B, 2).
 

@@ -4,8 +4,8 @@ The reference uses an iterative GJK overlap test ported from kroitor/gjk.c
 (reference: gym/f110_gym/envs/collision_models.py:34-212) inside a Python
 O(N^2) double loop.  GJK's data-dependent while-loop is hostile to XLA, and
 for two convex quads the separating-axis theorem (SAT) gives the identical
-boolean answer with a fixed amount of branch-free arithmetic — so the TPU
-design is an all-pairs SAT evaluated as one fused broadcast over
+boolean answer with a fixed amount of branch-free arithmetic — so the
+design here is an all-pairs SAT evaluated as one fused broadcast over
 (env, pair, axis) with no loops at all.
 
 Semantics notes for parity with the reference GJK:
@@ -68,8 +68,8 @@ def _obb_overlap(pose1, pose2, hl1, hw1, hl2, hw2):
     """Rectangle-vs-rectangle SAT directly from poses — no vertex tensors.
 
     The general quad SAT above broadcasts (..., pair, 8 axes, 4 verts)
-    einsums whose tiny trailing dims pad disastrously on TPU tile layouts
-    (measured 2.4 ms/step at 16k envs — a third of the whole step).  For
+    einsums whose tiny trailing dims pad badly on accelerator tile layouts.
+    For
     rectangles only 4 distinct axes exist and every projection has a closed
     form, so the whole test is ~30 scalar elementwise ops that fuse into
     the step's other (E, A) arithmetic.  Boolean semantics identical to

@@ -1,11 +1,11 @@
 """Single-track vehicle dynamics, input constraints and the low-level PID map.
 
-TPU-native re-expression of the reference Numba kernels
+An on-device re-expression of the reference Numba kernels
 (reference: gym/f110_gym/envs/dynamic_models.py:29-221).  Everything here is
 pure, branch-free jnp that broadcasts over arbitrary leading batch axes
 (env, agent): the conditional branches of the reference become `jnp.where`
 selects so one fused XLA kernel evaluates the right-hand side for an entire
-fleet of cars at once on the VPU.
+fleet of cars at once.
 
 State layout (reference: base_classes.py:95):
     ``x = [x, y, steer_angle, vel, yaw_angle, yaw_rate, slip_angle]``

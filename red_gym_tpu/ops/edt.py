@@ -4,7 +4,7 @@ The reference computes its map EDT on host with scipy at map-load time
 (reference: gym/f110_gym/envs/laser_models.py:32,52 — `resolution *
 edt(bitmap)`, distance from each free pixel to the nearest occupied one).
 This repo's default load path uses the native C++ Felzenszwalb (with a
-scipy fallback); this module adds a TPU-resident variant so procedurally
+scipy fallback); this module adds a device-resident variant so procedurally
 generated maps can go occupancy -> EDT -> range texture without a host
 round trip.
 
@@ -16,8 +16,8 @@ quadratic kernel (the same decomposition Felzenszwalb exploits):
     edt      = resolution * sqrt(D2)
 
 Felzenszwalb's lower-envelope scan is O(n) but inherently sequential; on
-TPU the O(n^2) dense form is a masked broadcast + min-reduce that runs on
-the VPU in a few ms for map-sized inputs and is EXACT: all squared
+an accelerator the O(n^2) dense form is a masked broadcast + min-reduce,
+parallel over every pixel, and is EXACT: all squared
 distances for maps up to 2896 px fit float32 integers (< 2^24).
 """
 

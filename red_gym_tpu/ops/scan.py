@@ -2,9 +2,9 @@
 
 The reference marches each of the 1080 beams in a serial Numba loop with
 data-dependent trip count (reference: gym/f110_gym/envs/laser_models.py:
-107-186).  On TPU every beam of every car of every env marches in lockstep:
+107-186).  Here every beam of every car of every env marches in lockstep:
 the state is a (batch..., beams) front of ray tips, one march iteration is a
-gather from the distance-transform texture plus two fused FMAs on the VPU,
+gather from the distance-transform texture plus two fused FMAs,
 and the loop runs as `lax.while_loop` until every ray in the batch has
 terminated (or a fixed `fori_loop` budget when a static schedule is
 preferred).  The arithmetic sequence per beam is identical to the reference,
@@ -13,7 +13,7 @@ so float64 runs are bit-exact.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import jax
@@ -38,11 +38,6 @@ class ScanTables(NamedTuple):
     beam_cosines: jnp.ndarray    # (num_beams,) cos(scan_angles)
     beam_sines: jnp.ndarray      # (num_beams,) sin(scan_angles)
     side_distances: jnp.ndarray  # (num_beams,) lidar->car-edge distance
-    # (rows + pad, num_beams) wrap-extended noise pool, attached by
-    # env.make_params for cfg.noise_mode="pool_rot" only: the megakernel
-    # keeps it VMEM-resident and rotation-addresses rows in-kernel, so the
-    # per-step (E, B) noise slab never materializes (see SimConfig).
-    noise_pool_ext: Optional[jnp.ndarray] = None
 
 
 def build_tables(cfg: SimConfig, width: float, length: float,

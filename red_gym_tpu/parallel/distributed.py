@@ -2,16 +2,15 @@
 
 The reference's only distribution story was one OS process per env over ZMQ
 to a C++ simulator (retired; reference: gym/f110_gym/envs/
-f110_env_backup.py:33-62).  The TPU-native story (BASELINE config 5): every
-process owns the chips physically attached to it, `jax.distributed`
-assembles them into one global device set, envs shard along a global 1-D
-``env`` mesh (host-local rows live on host-local chips, so the rollout loop
-touches only ICI-local data), and the learner's gradient psum is the single
-cross-host collective — XLA routes it over ICI within a slice and DCN
-across slices.
+f110_env_backup.py:33-62).  Here (BASELINE config 5): every process owns
+the accelerators physically attached to it, `jax.distributed` assembles
+them into one global device set, envs shard along a global 1-D ``env``
+mesh (host-local rows live on host-local devices, so the rollout loop
+touches only local data), and the learner's gradient psum is the single
+cross-host collective.
 
-The same code paths run on a real pod slice (`initialize()` with no args —
-JAX autodetects TPU topology) and on N CPU processes with virtual devices
+The same code paths run on several GPU hosts and on N CPU processes with
+virtual devices
 (tests/test_distributed.py launches 2 processes x 4 virtual devices and
 checks the training step matches the single-process result exactly).
 """
@@ -33,10 +32,8 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_ids: Optional[list[int]] = None) -> None:
     """Join the global JAX process group.
 
-    On TPU pod slices call with no arguments — JAX autodetects the
-    coordinator and topology from the TPU runtime.  Elsewhere (CPU fleets,
-    tests), pass the coordinator explicitly or set the standard environment
-    variables::
+    Pass the coordinator explicitly (nothing on a plain GPU host tells JAX
+    of a cluster) or set the standard environment variables::
 
         JAX_COORDINATOR_ADDRESS   host:port of process 0
         JAX_NUM_PROCESSES         total process count

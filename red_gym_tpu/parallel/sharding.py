@@ -2,11 +2,12 @@
 
 The reference's only distribution story was one process per env over ZMQ to a
 C++ sim (retired; reference: gym/f110_gym/envs/f110_env_backup.py:33-62).
-The TPU-native design: envs are rows of sharded arrays.  A 1-D ``env`` mesh
-axis shards every leading env axis of `EnvState`/`Observation`; the policy /
-learner parameters are replicated; XLA inserts the collectives (psum for
-gradient sync) over ICI.  The same code runs single-chip, 8 virtual CPU
-devices, or a multi-host pod slice after `jax.distributed.initialize`.
+Here envs are rows of sharded arrays.  A 1-D ``env`` mesh axis shards
+every leading env axis of `EnvState`/`Observation`; the policy / learner
+parameters are replicated; XLA inserts the collectives (psum for gradient
+sync, over NVLink between the GPUs of a host).  The same code runs on one
+GPU, on several, on 8 virtual CPU devices, or across hosts after
+`jax.distributed.initialize`.
 """
 
 from __future__ import annotations

@@ -4,11 +4,12 @@ The reference's experiment config reserves bounds for [mass, lf, tlad,
 vgain] and a CMA optimizer with popsize/budget (reference:
 examples/config_example_map.yaml:24-43, optim_method 'CMA') — the search
 script itself ran out-of-tree, one sequential rollout per candidate.  The
-TPU-native design evaluates the ENTIRE population in one jitted batched
+design here evaluates the ENTIRE population in one jitted batched
 rollout: candidates are rows of a vmapped env batch, each carrying its own
 `VehicleParams` leaves and pure-pursuit (tlad, vgain), so a 100-candidate
 generation costs one device dispatch.  CMA-ES itself is a few-KB host-side
-numpy update (dimension ~4) — the right split of work between host and MXU.
+numpy update (dimension ~4) — the right split of work between host and
+device.
 """
 
 from __future__ import annotations

@@ -4,14 +4,14 @@ The reference's deployment story ends at
 ``torch.save(actor.state_dict(), "sac_actor.pth")`` (reference
 src/SAL.py:1017) — loading that file requires the exact Python model class,
 matching framework versions, and a pickle-compatible environment on the
-robot.  The TPU-native equivalent exports the policy FUNCTION itself:
+robot.  Here the policy FUNCTION itself is exported:
 trained weights are baked into a jit-compiled program as constants and the
 whole program is serialized as *versioned StableHLO* via ``jax.export``, so
 the artifact
 
-- loads and runs with NO model code (no flax, no module class, no pickle),
-- is lowered ahead-of-time for every platform named at export (cpu + tpu
-  by default: the same file serves the on-car CPU and a TPU eval farm),
+- loads and runs with NO model code (no module class, no pickle),
+- is lowered ahead-of-time for every platform named at export (cpu + cuda
+  by default: the same file serves the on-car CPU and a GPU eval farm),
 - carries a symbolic batch dimension, so one artifact drives a single car
   or a vmapped fleet without re-export,
 - is protected by StableHLO's forward-compatibility guarantees rather than
@@ -58,7 +58,7 @@ def deterministic_sac_action(actor, params):
     return fn
 
 
-def export_policy(fn, example_args, *, platforms=("cpu", "tpu"),
+def export_policy(fn, example_args, *, platforms=("cpu", "cuda"),
                   batch: str | None = "b"):
     """Lower ``fn`` (weights already closed over) to a multi-platform
     StableHLO Exported.

@@ -82,12 +82,12 @@ def test_sac_actor_roundtrip(tmp_path):
     assert out.shape == (2, 8) and np.all(np.abs(out) <= 1.0)
 
 
-def test_multiplatform_lowering_includes_tpu(ppo_head):
-    """The deployment artifact is lowered for cpu AND tpu ahead of time —
+def test_multiplatform_lowering_includes_cuda(ppo_head):
+    """The deployment artifact is lowered for cpu AND cuda ahead of time —
     exporting for a platform does not require having it attached."""
     fn, scan, vel = ppo_head
-    exp = ex.export_policy(fn, (scan, vel), platforms=("cpu", "tpu"))
-    assert set(exp.platforms) == {"cpu", "tpu"}
+    exp = ex.export_policy(fn, (scan, vel))
+    assert set(exp.platforms) == {"cpu", "cuda"}
     data = exp.serialize()
     assert len(data) > 1000
     re = ex._jexport.deserialize(data)

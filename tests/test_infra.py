@@ -424,103 +424,3 @@ def test_noise_pool_statistics_match_fresh():
     rows = np.asarray(pool)[picks[:T] % cfg.noise_pool_rows]
     per_beam_mean = rows.mean(axis=0)
     assert np.abs(per_beam_mean).max() < 5 * sigma / np.sqrt(T)
-
-
-def test_noise_pool_rot_env_smoke():
-    """cfg.noise_mode='pool_rot' end-to-end: under the megakernel the env
-    steps with rotation-addressed in-kernel noise (no (E, B) slab); off the
-    megakernel path it degrades to the pool row-pick semantics.  Checks
-    determinism, that noise is actually applied, and the fallback."""
-    import dataclasses
-
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from red_gym_tpu.config import SimConfig
-    from red_gym_tpu import env as envlib
-    from tests._assets import HAVE_REFERENCE
-    import pytest as _pytest
-
-    if not HAVE_REFERENCE:
-        _pytest.skip("reference assets")
-    cfg = SimConfig(num_agents=2, num_beams=270, dtype="float32",
-                    scan_mode="fast", rt_theta_bins=128, rt_pose_stride=8,
-                    rt_occlusion="edge", rt_grad=True, scan_backend="pallas",
-                    scan_megakernel="on", fuse_scan_ttc="on",
-                    noise_mode="pool_rot", noise_pool_rows=128)
-    params = envlib.make_params(
-        cfg, "/root/reference/examples/example_map.yaml", ".png")
-    assert params.tables.noise_pool_ext is not None
-    assert params.tables.noise_pool_ext.shape[0] == 128 + 128  # rows + pad
-
-    E = 6
-    poses = jnp.tile(jnp.asarray([[0.7, 0.0, 1.37], [0.7, -1.0, 1.37]],
-                                 jnp.float32), (E, 1, 1))
-    keys = jax.random.split(jax.random.PRNGKey(3), E)
-    reset_v = jax.jit(jax.vmap(
-        lambda po, k: envlib.reset(cfg, params, po, k), in_axes=(0, 0)))
-    s1, o1, *_ = reset_v(poses, keys)
-    s2, o2, *_ = reset_v(poses, keys)
-    np.testing.assert_array_equal(np.asarray(o1.scans), np.asarray(o2.scans))
-    act = jnp.zeros((E, 2, 2), jnp.float32)
-    step_v = jax.jit(jax.vmap(
-        lambda s, a: envlib.step(cfg, params, s, a), in_axes=(0, 0)))
-    s3, o3, *_ = step_v(s1, act)
-    assert np.isfinite(np.asarray(o3.scans)).all()
-
-    # noise is really applied: a zero-noise config differs
-    cfg0 = dataclasses.replace(cfg, scan_noise_std=0.0)
-    params0 = envlib.make_params(
-        cfg0, "/root/reference/examples/example_map.yaml", ".png")
-    s0, _, *_ = reset_v(poses, keys)
-    _, o30, *_ = jax.jit(jax.vmap(
-        lambda s, a: envlib.step(cfg0, params0, s, a), in_axes=(0, 0)))(s0, act)
-    d = np.abs(np.asarray(o3.scans) - np.asarray(o30.scans))
-    assert (d > 1e-4).any() and np.median(d) < 0.1
-
-    # fallback off the megakernel: pool row-pick semantics, still noisy
-    cfg_f = dataclasses.replace(cfg, scan_megakernel="off",
-                                fuse_scan_ttc="off", scan_backend="xla")
-    _, o3f, *_ = jax.jit(jax.vmap(
-        lambda s, a: envlib.step(cfg_f, params, s, a), in_axes=(0, 0)))(s1, act)
-    assert np.isfinite(np.asarray(o3f.scans)).all()
-
-
-def test_mega_and_pool_rot_scope_guards():
-    """Round-5 review fixes: agent counts that don't divide the mega row
-    tile fall back to the unfused path instead of tripping a trace-time
-    tile assert, and pool_rot configs outside the kernel's tiling
-    constraints degrade to the plain pool row-pick (noise_pool_ext
-    None)."""
-    import dataclasses
-
-    import jax.numpy as jnp
-    from red_gym_tpu.config import SimConfig
-    from red_gym_tpu import env as envlib
-    from red_gym_tpu.ops import scan_fast
-    import pytest as _pytest
-
-    base = SimConfig(num_agents=3, num_beams=64, dtype="float32",
-                     scan_mode="fast", rt_occlusion="edge", rt_grad=True,
-                     scan_backend="pallas")
-    # A=3: 'on' refuses loudly, 'auto' silently falls back
-    with _pytest.raises(ValueError, match="num_agents dividing 128"):
-        scan_fast.use_megakernel(
-            dataclasses.replace(base, scan_megakernel="on"))
-    assert not scan_fast.use_megakernel(
-        dataclasses.replace(base, scan_megakernel="auto"))
-    # A=2 divides: 'on' accepted
-    assert scan_fast.use_megakernel(
-        dataclasses.replace(base, num_agents=2, scan_megakernel="on"))
-
-    # pool_rot tiling constraints -> graceful degradation
-    pool = jnp.zeros((100, 64), jnp.bfloat16)
-    cfg = dataclasses.replace(base, num_agents=2, noise_mode="pool_rot",
-                              noise_pool_rows=100)
-    assert envlib._pool_ext(cfg, pool) is None          # rows % 16 != 0
-    cfg = dataclasses.replace(cfg, noise_pool_rows=128)
-    pool = jnp.zeros((128, 64), jnp.bfloat16)
-    assert envlib._pool_ext(
-        dataclasses.replace(cfg, num_agents=1), pool) is None  # < tile
-    ext = envlib._pool_ext(cfg, pool)                   # A=2: tile 128 ok
-    assert ext is not None and ext.shape[0] == 128 + 128

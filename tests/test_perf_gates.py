@@ -132,30 +132,3 @@ def test_full_step_rate():
         return jax.lax.scan(body, s, None, length=20)[0]
 
     _gate(_rate(step20, params, states, units=256 * 20), 6e3)
-
-
-def test_agent_scaling_artifact():
-    """Committed agent-axis scaling study (VERDICT r4 item 5,
-    tools/agent_scaling.py on chip at constant rows = envs * agents).
-    Gates the two structural claims rather than raw chip speed: compile
-    time stays FLAT in agent count (the batched opponent/SAT formulations
-    keep the traced program O(1) in A — the unrolled loops re-traced A-1
-    passes), and per-row throughput degrades sub-linearly (A=16 does 15x
-    the per-row opponent work of A=2)."""
-    import csv
-    import os
-
-    import pytest
-
-    path = os.path.join(os.path.dirname(__file__), "..", "docs", "media",
-                        "agent_scaling.csv")
-    if not os.path.isfile(path):
-        pytest.skip("agent_scaling.csv not committed on this checkout")
-    with open(path) as f:
-        rows = {int(r["agents"]): r for r in csv.DictReader(f)}
-    assert {2, 4, 8, 16} <= set(rows)
-    compiles = [float(rows[a]["compile_s"]) for a in (2, 4, 8, 16)]
-    assert max(compiles) < 2.0 * min(compiles), compiles  # flat trace cost
-    r2 = float(rows[2]["row_steps_s"])
-    r16 = float(rows[16]["row_steps_s"])
-    assert r16 > r2 / 8.0, (r2, r16)  # sub-linear per-row degradation

@@ -145,34 +145,6 @@ def test_spectral_interp_accuracy(setup):
     assert np.quantile(err, 0.9) < 5 * cell, f"p90 err {np.quantile(err, 0.9):.3f}m"
     assert np.all(spec >= 0) and np.all(spec <= CFG.max_range)
 
-
-@pytest.mark.slow
-def test_pallas_epilogue_matches_xla(setup):
-    """The fused Pallas shuffle-matmul + blend kernel (interpret mode off
-    TPU) equals the unfused XLA path, including under vmap (the custom_vmap
-    rule collapses batch axes into kernel rows)."""
-    import dataclasses
-
-    tmap, tables, rtex = setup
-    cfg_x = dataclasses.replace(CFG, scan_backend="xla")
-    cfg_p = dataclasses.replace(CFG, scan_backend="pallas")
-    rng = np.random.default_rng(7)
-    poses = jnp.asarray(np.stack([rng.uniform(-5, 5, 6), rng.uniform(-5, 5, 6),
-                                  rng.uniform(0, 2 * np.pi, 6)], axis=-1))
-    a = np.asarray(scan_fast.trace_fast_mxu(poses, tables, tmap, rtex, cfg_x))
-    b = np.asarray(scan_fast.trace_fast_mxu(poses, tables, tmap, rtex, cfg_p))
-    np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
-
-    # vmapped (the env.step composition): (E, A, 3) poses
-    pv = poses.reshape(3, 2, 3)
-    f_x = jax.jit(jax.vmap(
-        lambda po: scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg_x)))
-    f_p = jax.jit(jax.vmap(
-        lambda po: scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg_p)))
-    np.testing.assert_allclose(np.asarray(f_x(pv)), np.asarray(f_p(pv)),
-                               rtol=1e-10, atol=1e-10)
-
-
 @pytest.mark.slow
 def test_mxu_variant_fov47(setup):
     """The constant-matmul path handles a non-2pi FOV (upstream default
@@ -261,7 +233,7 @@ def _run_contract(stride, gates):
 def test_error_contract_shipped_defaults_f32():
     """Error contract at the SHIPPED configuration: rt_pose_stride=2 (cell =
     0.125 m at the 0.0625 m/px maps), 128 theta bins, float32 textures (the
-    TPU dtype), 1080 beams, nearest1/linear with edge+gradient channels
+    throughput dtype), 1080 beams, nearest1/linear with edge+gradient channels
     (the round-3 default).  Gates pin the r3 study values with ~1.5x
     headroom; docs/performance.md carries the measured numbers.
 
@@ -296,7 +268,7 @@ def test_error_contract_sentinel_coarse():
     0.5 m cell."""
     _run_contract(stride=8, gates={
         "default": ({}, (0.35, 1.0, 3.2, 0.32, 0.05)),
-        # the TPU XLA-fallback numerics: (e, w) shuffle matmul +
+        # the GPU XLA-path numerics: (e, w) shuffle matmul +
         # intermediate in bfloat16 (rt_ew_dtype docstring) — a bf16 ulp
         # moves the ramp by <0.2% of a bin, so the gates are identical
         "ew_bf16": ({"rt_ew_dtype": "bfloat16"},
@@ -511,159 +483,6 @@ def test_edge_mode_variants_agree(setup_edge, spatial):
 
 @pytest.mark.slow  # ~45s interpret-mode kernel; the fast lane keeps the
 # STEP-level fused parity (test_fused_ttc_env_step_matches_unfused)
-def test_pallas_edge_epilogue_matches_xla(setup_edge):
-    """The fused edge kernel (interpret mode off TPU) matches the XLA edge
-    path, including under vmap.  Both epilogues resolve cfg.rt_ew_dtype by
-    the same rule (scan_fast._resolve_ew_dtype), so at the off-TPU "auto"
-    default the channel-tap matmuls run at the scan dtype on BOTH backends
-    and the scans agree to fp tolerance.  With an explicit
-    rt_ew_dtype="bfloat16" a beam whose frac falls inside the bf16-shifted
-    (2^-8 relative) ramp window can legitimately land on the other side of
-    a hard visibility edge, so that case gates the bulk tightly and the
-    flipped fraction separately."""
-    import dataclasses
-
-    tmap, tables, rtex = setup_edge
-    cfg_x = dataclasses.replace(CFG_EDGE, scan_backend="xla")
-    cfg_p = dataclasses.replace(CFG_EDGE, scan_backend="pallas")
-    poses = _free_poses(tmap, 10, seed=29)
-    a = np.asarray(scan_fast.trace_fast_mxu(poses, tables, tmap, rtex, cfg_x))
-    b = np.asarray(scan_fast.trace_fast_mxu(poses, tables, tmap, rtex, cfg_p))
-    np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
-
-    # explicit bf16 channel taps: bounded edge-flip budget vs the f64 XLA
-    # render (the on-TPU "auto" error class)
-    cfg_b = dataclasses.replace(CFG_EDGE, scan_backend="pallas",
-                                rt_ew_dtype="bfloat16")
-    bb = np.asarray(scan_fast.trace_fast_mxu(poses, tables, tmap, rtex,
-                                             cfg_b))
-    err = np.abs(a - bb)
-    cell = float(rtex.cell)
-    assert np.quantile(err, 0.99) < 0.5 * cell, f"p99 {np.quantile(err, 0.99)}"
-    assert np.mean(err > 4 * cell) < 2e-3, f"flips {np.mean(err > 4 * cell)}"
-
-    # vmapped composition (custom_vmap collapses batch axes into rows)
-    pv = poses.reshape(5, 2, 3)
-    f_p = jax.jit(jax.vmap(
-        lambda po: scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg_p)))
-    bv = np.asarray(f_p(pv)).reshape(10, -1)
-    np.testing.assert_allclose(bv, b, rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.slow  # ~33s interpret-mode kernel; step-level parity stays fast
-def test_fused_ttc_epilogue_matches_unfused(setup_edge):
-    """The fused noise+iTTC edge kernel (fuse_scan_ttc) returns the same
-    noisy scan and hit flags as pallas-edge + XLA noise add + check_ttc —
-    identical math, so the comparison is tight even through interpret
-    mode."""
-    import dataclasses
-
-    from red_gym_tpu.ops import agent_scan
-
-    tmap, tables, rtex = setup_edge
-    # generous iTTC horizon so the random free-space poses produce hits AND
-    # misses (at the shipped 5 ms horizon only near-wall poses hit)
-    cfg = dataclasses.replace(CFG_EDGE, scan_backend="pallas",
-                              ttc_thresh=2.0)
-    e_n, a_n = 5, 2
-    pv = _free_poses(tmap, e_n * a_n, seed=31).reshape(e_n, a_n, 3)
-    rng = np.random.default_rng(3)
-    noise = jnp.asarray(rng.normal(0.0, 0.01, (e_n, cfg.num_beams)))
-    # velocities spanning both iTTC sign branches and the vel == 0 freeze
-    vel = jnp.asarray([[0.0, 5.0], [-3.0, 6.0], [4.0, -1.0],
-                       [6.0, 6.0], [0.2, 3.0]])
-
-    fused = jax.jit(jax.vmap(
-        lambda po, no, ve: scan_fast.trace_fast_mxu(
-            po, tables, tmap, rtex, cfg, fused_ttc=(no, ve))))
-    scans_f, hit01 = fused(pv, noise, vel)
-    hit_f = np.asarray((hit01 > 0) & (vel != 0.0))
-
-    plain = jax.jit(jax.vmap(
-        lambda po: scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg)))
-    scans_u = plain(pv) + noise[:, None, :]
-    hit_u = np.asarray(agent_scan.check_ttc(scans_u, vel, tables,
-                                            cfg.ttc_thresh))
-
-    np.testing.assert_allclose(np.asarray(scans_f), np.asarray(scans_u),
-                               rtol=1e-6, atol=1e-6)
-    # a hit flag can only legitimately differ if some beam sits within
-    # float rounding of the iTTC inequality boundary; with these smooth
-    # inputs none do
-    np.testing.assert_array_equal(hit_f, hit_u)
-    # contract guard: at least one hit and one miss among moving agents
-    moving = np.asarray(vel != 0.0)
-    assert hit_u[moving].any() and (~hit_u[moving]).any(), \
-        "degenerate fixture: iTTC outcomes not exercised both ways"
-
-
-def test_fused_ttc_spectral_matches_unfused(setup):
-    """The fused spectral kernel (theta_spectral_ttc) == XLA spectral render
-    + noise add + check_ttc.  The contraction dim is untiled, so the matmul
-    reduction order matches XLA's and the comparison is tight."""
-    import dataclasses
-
-    from red_gym_tpu.ops import agent_scan
-
-    tmap, tables, rtex = setup
-    cfg = dataclasses.replace(CFG, scan_interp="spectral",
-                              scan_backend="pallas", ttc_thresh=2.0)
-    e_n, a_n = 4, 2
-    pv = _free_poses(tmap, e_n * a_n, seed=23).reshape(e_n, a_n, 3)
-    rng = np.random.default_rng(5)
-    noise = jnp.asarray(rng.normal(0.0, 0.01, (e_n, cfg.num_beams)))
-    vel = jnp.asarray([[0.0, 5.0], [-3.0, 6.0], [4.0, -1.0], [6.0, 2.0]])
-
-    fused = jax.jit(jax.vmap(
-        lambda po, no, ve: scan_fast.trace_fast_mxu(
-            po, tables, tmap, rtex, cfg, fused_ttc=(no, ve))))
-    scans_f, hit01 = fused(pv, noise, vel)
-    hit_f = np.asarray((hit01 > 0) & (vel != 0.0))
-
-    cfg_x = dataclasses.replace(cfg, scan_backend="xla")
-    plain = jax.jit(jax.vmap(
-        lambda po: scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg_x)))
-    scans_u = plain(pv) + noise[:, None, :]
-    hit_u = np.asarray(agent_scan.check_ttc(scans_u, vel, tables,
-                                            cfg.ttc_thresh))
-
-    np.testing.assert_allclose(np.asarray(scans_f), np.asarray(scans_u),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(hit_f, hit_u)
-    moving = np.asarray(vel != 0.0)
-    assert hit_u[moving].any() and (~hit_u[moving]).any(), \
-        "degenerate fixture: iTTC outcomes not exercised both ways"
-
-
-def test_fused_ttc_env_step_matches_unfused():
-    """One full env step with fuse_scan_ttc='on' (pallas interpret) equals
-    the unfused pallas path: same RNG stream, same scans/state/collisions."""
-    import dataclasses
-
-    cfg = SimConfig(num_agents=2, num_beams=270, dtype="float32",
-                    scan_mode="fast", rt_theta_bins=128, rt_pose_stride=8,
-                    scan_backend="pallas", fuse_scan_ttc="on")
-    assert scan_fast.use_fused_ttc(cfg)
-    tmap32 = load_map(MAP_YAML, ".png", dtype=jnp.float32)
-    params = envlib.make_params(cfg, MAP_YAML, ".png")
-    del tmap32
-    poses = jnp.asarray([[0.7, 0.0, 1.37], [0.7, -1.0, 1.37]], jnp.float32)
-    actions = jnp.asarray([[0.1, 3.0], [-0.1, 2.0]], jnp.float32)
-
-    outs = {}
-    for name, mut in (("fused", {}), ("plain", {"fuse_scan_ttc": "off"})):
-        ci = dataclasses.replace(cfg, **mut)
-        state = envlib.init_state(ci, poses, jax.random.PRNGKey(7))
-        # a couple of steps so velocity is nonzero when iTTC runs
-        for _ in range(3):
-            state, obs, rew, done, info = jax.jit(
-                lambda s, a: envlib.step(ci, params, s, a))(state, actions)
-        outs[name] = (np.asarray(obs.scans), np.asarray(state.x),
-                      np.asarray(state.collisions))
-    for a, b in zip(outs["fused"], outs["plain"]):
-        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
-
-
 def test_snap_mode_variants_agree(setup):
     """rt_occlusion='snap' needs no extra channels and the two variants
     agree (the plain single-channel texture serves it)."""
@@ -695,17 +514,6 @@ def test_edge_mode_cuts_occlusion_tail(setup_edge):
     cell = float(rtex_off.cell)
     assert np.quantile(err_edge, 0.99) < 0.7 * np.quantile(err_off, 0.99)
     assert np.mean(err_edge > 4 * cell) < np.mean(err_off > 4 * cell)
-
-
-def test_pallas_rejects_snap_mode():
-    with pytest.raises(ValueError, match="pallas"):
-        SimConfig(scan_backend="pallas", rt_occlusion="snap")
-    # off and edge both have fused kernels; spectral neutralizes occlusion
-    SimConfig(scan_backend="pallas", rt_occlusion="edge", rt_grad=True)
-    SimConfig(scan_backend="pallas", rt_occlusion="off", rt_grad=True)
-    SimConfig(scan_backend="pallas", scan_interp="spectral",
-              rt_occlusion="edge", rt_grad=False)
-
 
 def test_channel_mismatch_raises(setup, setup_edge):
     """A texture built for one channel layout refuses to serve a config
@@ -783,270 +591,3 @@ def test_pad_texture_equals_padded_map_build():
     assert scan_fast.pad_texture(t, int(t.hc), int(t.wc)) is t
     with pytest.raises(ValueError):
         scan_fast.pad_texture(t, int(t.hc) - 1, int(t.wc))
-
-
-def test_fused_opp_epilogue_matches_unfused(setup_edge):
-    """The fully-fused epilogue (fuse_scan_opp: edge render + noise + iTTC
-    + opponent ray cast in one kernel) matches pallas-edge + XLA noise +
-    check_ttc + ray_cast_all_opponents.  The in-kernel slab test folds the
-    heading rotation into the box axes (algebraically identical to
-    agent_scan.ray_cast_opponent, float-associated differently), so scans
-    carry an fp tolerance; a beam can only disagree beyond it at a grazing
-    box-corner hit, which these fixtures avoid."""
-    import dataclasses
-
-    from red_gym_tpu.ops import agent_scan, collision as col
-
-    tmap, tables, rtex = setup_edge
-    cfg = dataclasses.replace(CFG_EDGE, scan_backend="pallas",
-                              ttc_thresh=2.0, num_agents=2)
-    e_n, a_n = 4, 2
-    rng = np.random.default_rng(5)
-    base = _free_poses(tmap, e_n, seed=37)
-    # opponent placed 1-3 m ahead-ish of the ego so the blocked window and
-    # slab hits are actually exercised
-    opp_off = rng.uniform(-2.5, 2.5, (e_n, 2))
-    opp_pose = np.stack([base[:, 0] + opp_off[:, 0],
-                         base[:, 1] + opp_off[:, 1],
-                         rng.uniform(0, 2 * np.pi, e_n)], axis=-1)
-    pv = jnp.asarray(np.stack([base, opp_pose], axis=1))     # (E, A, 3)
-    noise = jnp.asarray(rng.normal(0.0, 0.01, (e_n, cfg.num_beams)))
-    vel = jnp.asarray(rng.uniform(-2.0, 6.0, (e_n, a_n)))
-
-    length, width = 0.58, 0.31
-
-    def fused_one(po, no, ve):
-        verts = col.get_vertices(po, length, width)
-        opp = agent_scan.opponent_slab_scalars(po, verts, tables)
-        return scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg,
-                                        fused_ttc=(no, ve, opp))
-
-    scans_f, hit01 = jax.jit(jax.vmap(fused_one))(pv, noise, vel)
-    hit_f = np.asarray((hit01 > 0) & (vel != 0.0))
-
-    plain = jax.jit(jax.vmap(
-        lambda po: scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg)))
-    scans_n = plain(pv) + noise[:, None, :]
-    hit_u = np.asarray(agent_scan.check_ttc(scans_n, vel, tables,
-                                            cfg.ttc_thresh))
-
-    def opp_one(po, sc):
-        verts = col.get_vertices(po, length, width)
-        return agent_scan.ray_cast_all_opponents(po, sc, verts, tables)
-
-    scans_u = jax.jit(jax.vmap(opp_one))(pv, scans_n)
-
-    np.testing.assert_allclose(np.asarray(scans_f), np.asarray(scans_u),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(hit_f, hit_u)
-    # contract guard: the opponent cast actually shortened some beams
-    assert (np.asarray(scans_u) < np.asarray(scans_n) - 1e-6).any(), \
-        "degenerate fixture: no beam blocked by an opponent"
-
-
-def test_megakernel_matches_unfused():
-    """The one-launch megakernel (scan_megakernel: raw gathered rows ->
-    corrections + parallax + DFT roll + taps + render + noise + iTTC in one
-    Pallas program) matches the XLA pipeline + fused epilogue.  The kernel
-    computes the same formulas with different float association (pre-rolled
-    constant matrices instead of packed-lane slicing, in-kernel trig), so
-    scans are compared at fp tolerance with a small edge-flip budget, and
-    hits exactly.  Runs in FLOAT32 (the megakernel's only dtype — it is the
-    library-default throughput path) on a fresh stride-8 texture."""
-    import dataclasses
-
-    from red_gym_tpu.ops import agent_scan
-
-    cfg_x = dataclasses.replace(CFG_EDGE, dtype="float32",
-                                scan_backend="xla", ttc_thresh=2.0)
-    tmap = load_map(MAP_YAML, ".png", dtype=jnp.float32)
-    tables = scan_ops.build_tables(cfg_x, 0.31, 0.58, dtype=jnp.float32)
-    rtex = scan_fast.build_range_texture(tmap, cfg_x)
-    cfg_m = dataclasses.replace(cfg_x, scan_backend="pallas",
-                                scan_megakernel="on")
-    # 160 envs x 2 agents = 320 rows -> TWO row tiles at the mega
-    # ROW_TILE=256: regression for the round-5 beam_tile bug, where the
-    # iTTC beam mask keyed on pl.program_id(0) (the ROW tile under mega's
-    # 1-D grid) and silently zeroed every hit beyond the first tile
-    e_n, a_n = 160, 2
-    pv = _free_poses(tmap, e_n * a_n, seed=41).reshape(e_n, a_n, 3)
-    rng = np.random.default_rng(9)
-    noise = jnp.asarray(rng.normal(0.0, 0.01, (e_n, cfg_m.num_beams)),
-                        jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2.0, 6.0, (e_n, a_n)), jnp.float32)
-
-    mega = jax.jit(jax.vmap(
-        lambda po, no, ve: scan_fast.trace_fast_mxu(
-            po, tables, tmap, rtex, cfg_m, fused_ttc=(no, ve))))
-    scans_m, hit01 = mega(pv, noise, vel)
-    hit_m = np.asarray((hit01 > 0) & (vel != 0.0))
-
-    plain = jax.jit(jax.vmap(
-        lambda po: scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg_x)))
-    scans_u = plain(pv) + noise[:, None, :]
-    hit_u = np.asarray(agent_scan.check_ttc(scans_u, vel, tables,
-                                            cfg_x.ttc_thresh))
-
-    err = np.abs(np.asarray(scans_m) - np.asarray(scans_u))
-    cell = float(rtex.cell)
-    # bulk must agree to float-reassociation tolerance; a beam whose frac
-    # sits within trig-rounding of a hard edge may land on the other side
-    assert np.quantile(err, 0.99) < 1e-3, np.quantile(err, 0.99)
-    assert np.mean(err > 4 * cell) < 2e-3, np.mean(err > 4 * cell)
-    np.testing.assert_array_equal(hit_m, hit_u)
-    # fixture guard: the second row tile must actually contain hits, or the
-    # beam_tile regression above would pass vacuously
-    assert hit_u[128:].any(), "no iTTC hits beyond the first row tile"
-
-
-def test_megakernel_opp_matches_unfused():
-    """Mega + in-kernel opponent ray cast (fuse_scan_opp with the
-    megakernel) vs the XLA pipeline + XLA opponent pass."""
-    import dataclasses
-
-    from red_gym_tpu.ops import agent_scan, collision as col
-
-    cfg_x = dataclasses.replace(CFG_EDGE, dtype="float32",
-                                scan_backend="xla", ttc_thresh=2.0,
-                                num_agents=2)
-    tmap = load_map(MAP_YAML, ".png", dtype=jnp.float32)
-    tables = scan_ops.build_tables(cfg_x, 0.31, 0.58, dtype=jnp.float32)
-    rtex = scan_fast.build_range_texture(tmap, cfg_x)
-    cfg_m = dataclasses.replace(cfg_x, scan_backend="pallas",
-                                scan_megakernel="on", fuse_scan_opp="on")
-    e_n, a_n = 4, 2
-    rng = np.random.default_rng(15)
-    base = _free_poses(tmap, e_n, seed=43)
-    opp_pose = np.stack([base[:, 0] + rng.uniform(-2.5, 2.5, e_n),
-                         base[:, 1] + rng.uniform(-2.5, 2.5, e_n),
-                         rng.uniform(0, 2 * np.pi, e_n)], axis=-1)
-    pv = jnp.asarray(np.stack([base, opp_pose], axis=1), jnp.float32)
-    noise = jnp.asarray(rng.normal(0.0, 0.01, (e_n, cfg_m.num_beams)),
-                        jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2.0, 6.0, (e_n, a_n)), jnp.float32)
-    length, width = 0.58, 0.31
-
-    def mega_one(po, no, ve):
-        verts = col.get_vertices(po, length, width)
-        opp = agent_scan.opponent_slab_scalars(po, verts, tables)
-        return scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg_m,
-                                        fused_ttc=(no, ve, opp))
-
-    scans_m, hit01 = jax.jit(jax.vmap(mega_one))(pv, noise, vel)
-    hit_m = np.asarray((hit01 > 0) & (vel != 0.0))
-
-    plain = jax.jit(jax.vmap(
-        lambda po: scan_fast.trace_fast_mxu(po, tables, tmap, rtex, cfg_x)))
-    scans_n = plain(pv) + noise[:, None, :]
-    hit_u = np.asarray(agent_scan.check_ttc(scans_n, vel, tables,
-                                            cfg_x.ttc_thresh))
-
-    def opp_one(po, sc):
-        verts = col.get_vertices(po, length, width)
-        return agent_scan.ray_cast_all_opponents(po, sc, verts, tables)
-
-    scans_u = jax.jit(jax.vmap(opp_one))(pv, scans_n)
-    err = np.abs(np.asarray(scans_m) - np.asarray(scans_u))
-    cell = float(rtex.cell)
-    assert np.quantile(err, 0.99) < 1e-3, np.quantile(err, 0.99)
-    assert np.mean(err > 4 * cell) < 2e-3, np.mean(err > 4 * cell)
-    np.testing.assert_array_equal(hit_m, hit_u)
-    assert (np.asarray(scans_u) < np.asarray(scans_n) - 1e-6).any()
-
-
-def test_megakernel_pool_rot_matches_slab():
-    """noise_mode='pool_rot': the megakernel rotation-addresses a
-    VMEM-resident noise pool (env g reads row (g + off) % rows with off =
-    env 0's draw) instead of consuming a pre-materialized (E, B) slab.
-    Feeding the SAME rows through the slab path must match BIT-exactly —
-    the two paths differ only in how the rows reach the kernel.  160 envs
-    span two row tiles, so the rotation's per-tile slice offset (tile *
-    tile_envs + off) and the wrap seam both get exercised."""
-    import dataclasses
-
-    cfg_x = dataclasses.replace(CFG_EDGE, dtype="float32",
-                                scan_backend="xla", ttc_thresh=2.0)
-    tmap = load_map(MAP_YAML, ".png", dtype=jnp.float32)
-    tables = scan_ops.build_tables(cfg_x, 0.31, 0.58, dtype=jnp.float32)
-    rtex = scan_fast.build_range_texture(tmap, cfg_x)
-    cfg_m = dataclasses.replace(cfg_x, scan_backend="pallas",
-                                scan_megakernel="on",
-                                noise_mode="pool_rot", noise_pool_rows=256)
-    e_n, a_n = 160, 2
-    pv = _free_poses(tmap, e_n * a_n, seed=41).reshape(e_n, a_n, 3)
-    rng = np.random.default_rng(7)
-    vel = jnp.asarray(rng.uniform(-2.0, 6.0, (e_n, a_n)), jnp.float32)
-    rows = cfg_m.noise_pool_rows
-    pool = jnp.asarray(rng.normal(0.0, 0.01, (rows, cfg_m.num_beams)),
-                       jnp.float32).astype(jnp.bfloat16)
-    pad = min(256, rows)
-    tables_rot = tables._replace(
-        noise_pool_ext=jnp.concatenate([pool, pool[:pad]], axis=0))
-    # off large enough that the tile slices cross the wrap seam, and NOT a
-    # multiple of 16 so the sublane-alignment quantization is exercised
-    off = rows - 37
-    ridx = jnp.full((e_n, 1), off, jnp.int32)  # only [0, 0] is read
-
-    rot = jax.jit(jax.vmap(
-        lambda po, no, ve: scan_fast.trace_fast_mxu(
-            po, tables_rot, tmap, rtex, cfg_m, fused_ttc=(no, ve))))
-    scans_r, hit_r = rot(pv, ridx, vel)
-
-    off_q = off & ~15  # the kernel quantizes the offset to multiples of 16
-    slab = pool[(jnp.arange(e_n) + off_q) % rows]          # (E, B) bf16
-    cfg_s = dataclasses.replace(cfg_m, noise_mode="pool")
-    ref = jax.jit(jax.vmap(
-        lambda po, no, ve: scan_fast.trace_fast_mxu(
-            po, tables, tmap, rtex, cfg_s, fused_ttc=(no, ve))))
-    scans_s, hit_s = ref(pv, slab, vel)
-
-    np.testing.assert_array_equal(np.asarray(scans_r), np.asarray(scans_s))
-    np.testing.assert_array_equal(np.asarray(hit_r), np.asarray(hit_s))
-    assert np.asarray(hit_s).any(), "degenerate fixture: no iTTC hits"
-
-
-def test_state_kernel_matches_xla_chain():
-    """cfg.state_kernel='on': the fused pre-scan Pallas kernel (steer
-    delay + PID + RK4 + yaw wrap + scan-geometry prep in ONE launch,
-    ops/pallas_state.py) must reproduce the XLA chain BIT-exactly through
-    a full env.step — it calls the same jnp functions in the same order on
-    a transposed layout.  Multi-step closed loop so the delay line, the
-    kernel-carried state and the pregeo-fed megakernel all cycle."""
-    import dataclasses
-
-    cfg_off = SimConfig(num_agents=2, num_beams=270, dtype="float32",
-                        scan_mode="fast", rt_theta_bins=128,
-                        rt_pose_stride=8, rt_occlusion="edge", rt_grad=True,
-                        scan_backend="pallas", scan_megakernel="on",
-                        fuse_scan_ttc="on", state_kernel="off")
-    cfg_on = dataclasses.replace(cfg_off, state_kernel="on")
-    params = envlib.make_params(cfg_off, MAP_YAML, ".png")
-
-    E = 6
-    poses = jnp.tile(jnp.asarray([[0.7, 0.0, 1.37], [0.7, -1.0, 1.37]],
-                                 jnp.float32), (E, 1, 1))
-    keys = jax.random.split(jax.random.PRNGKey(11), E)
-
-    def roll(cfg):
-        reset_v = jax.jit(jax.vmap(
-            lambda po, k: envlib.reset(cfg, params, po, k)))
-        step_v = jax.jit(jax.vmap(
-            lambda s, a: envlib.step(cfg, params, s, a)))
-        s, o, *_ = reset_v(poses, keys)
-        outs = []
-        for t in range(5):
-            a = jnp.full((E, 2, 2), 0.1 * (t + 1), jnp.float32)
-            s, o, r, d, _ = step_v(s, a)
-            outs.append((o.scans, o.poses_x, o.poses_theta, o.collisions))
-        return s, outs
-
-    s_off, o_off = roll(cfg_off)
-    s_on, o_on = roll(cfg_on)
-    for (a, b) in zip(o_off, o_on):
-        for u, v in zip(a, b):
-            np.testing.assert_array_equal(np.asarray(u), np.asarray(v))
-    np.testing.assert_array_equal(np.asarray(s_off.x), np.asarray(s_on.x))
-    np.testing.assert_array_equal(np.asarray(s_off.steer_buf),
-                                  np.asarray(s_on.steer_buf))
-    np.testing.assert_array_equal(np.asarray(s_off.steer_cnt),
-                                  np.asarray(s_on.steer_cnt))

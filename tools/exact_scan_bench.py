@@ -1,20 +1,18 @@
-"""Exact-mode (reference-parity sphere march) lidar throughput on chip.
+"""Exact-mode (reference-parity sphere march) lidar throughput on a GPU.
 
-VERDICT r4 stretch item 9: can the exact 1080-beam scan (ops/scan.py::trace,
-the lockstep march that mirrors reference laser_models.py:107-186) run fast
-enough ON TPU to make on-chip parity spot checks practical?  Target from
-the verdict: >= 50k scans/s (one scan = one 1080-beam pose), or a measured
-negative result.
+Can the exact 1080-beam scan (ops/scan.py::trace, the lockstep march that
+mirrors reference laser_models.py:107-186) run fast enough on the card to
+make on-device parity spot checks practical?  Target: >= 50k scans/s (one
+scan = one 1080-beam pose).
 
-The march is a while/fori loop of random 2-D gathers from the EDT texture —
-the access pattern XLA serves from HBM at ~row-gather rates.  This tool
-measures it honestly: float32, fixed march budget (march_iters, so the
-loop is a static pipeline), across batch sizes.
+The march is a while/fori loop of random 2-D gathers from the EDT texture.
+This tool measures it at float32 with a fixed march budget (march_iters,
+so the loop is a static pipeline), across batch sizes, and fails without a
+GPU.
 
-Usage: python tools/exact_scan_bench.py [--batches 256 1024 4096]
+Usage: python tools/exact_scan_bench.py [--batches 256 1024 4096 16384]
        [--iters 48] [--steps 20]
-Prints one JSON line per batch; exit code 0 either way (the RESULT is the
-artifact, recorded in docs/performance.md).
+Prints one JSON line per batch, naming the card.
 """
 
 import argparse
@@ -26,9 +24,6 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-
-_platform.apply()
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
@@ -37,17 +32,13 @@ import jax.numpy as jnp  # noqa: E402
 from red_gym_tpu.config import SimConfig  # noqa: E402
 from red_gym_tpu.maps.loader import load_map  # noqa: E402
 from red_gym_tpu.ops import scan as scan_ops  # noqa: E402
+from red_gym_tpu.utils import runtime  # noqa: E402
 
 
 def main():
     ap = argparse.ArgumentParser()
-    # 16384 is deliberately NOT in the default sweep: on live round-5
-    # hardware the 16k-batch march (35 M parallel scalar-gather streams)
-    # CRASHED the TPU worker process ("TPU worker process crashed or
-    # restarted ... kernel fault"); 4096 is the measured-safe ceiling and
-    # the rate is flat in batch anyway (scalar-gather-bound)
     ap.add_argument("--batches", type=int, nargs="+",
-                    default=[256, 1024, 4096])
+                    default=[256, 1024, 4096, 16384])
     ap.add_argument("--iters", type=int, default=48,
                     help="fixed march budget (reference marches until "
                          "eps/max_range; 48 covers the example map's p100)")
@@ -55,6 +46,10 @@ def main():
     ap.add_argument("--map", default=os.path.join(
         ROOT, "red_gym_tpu", "assets", "data", "track_0007.yaml"))
     args = ap.parse_args()
+    card = runtime.card()
+    runtime.enable_compile_cache()
+    device = runtime.device_record(1)
+    runtime.require_gpu()
 
     cfg = SimConfig(num_agents=1, num_beams=1080, dtype="float32",
                     scan_mode="exact", march_iters=args.iters)
@@ -65,7 +60,6 @@ def main():
     res = float(tmap.resolution)
     rng = np.random.default_rng(0)
     free = np.argwhere(dt_np > 1.0)
-    backend = jax.default_backend()
 
     for batch in args.batches:
         pick = free[rng.integers(0, len(free), batch)]
@@ -84,16 +78,17 @@ def main():
             _, sums = jax.lax.scan(body, poses, None, length=args.steps)
             return jnp.sum(sums)
 
-        t0 = time.time()
-        float(run(poses))
-        compile_s = time.time() - t0
+        t0 = time.perf_counter()
+        jax.block_until_ready(run(poses))
+        compile_s = time.perf_counter() - t0
         best = 0.0
         for _ in range(3):
-            t0 = time.time()
-            float(run(poses))
-            best = max(best, batch * args.steps / (time.time() - t0))
+            t0 = time.perf_counter()
+            jax.block_until_ready(run(poses))
+            best = max(best, batch * args.steps / (time.perf_counter() - t0))
         print(json.dumps({
-            "backend": backend, "batch": batch, "march_iters": args.iters,
+            "card": card, "device": device, "batch": batch,
+            "march_iters": args.iters,
             "scans_per_s": round(best, 1),
             "beam_lookups_per_s": round(best * 1080 * args.iters, 0),
             "compile_s": round(compile_s, 1),

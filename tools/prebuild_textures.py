@@ -1,15 +1,14 @@
 """Prebuild (and disk-cache) the range textures bench.py needs.
 
 The fast-scan texture is a one-time per-map precompute memoized to
-$RED_GYM_TPU_TEXTURE_CACHE (default ~/.cache/red_gym_tpu).  The round-3
-default build marches ~13 rays per theta-bin pair (edge localization +
-width probes + base row), so the first build of the 1600^2 example map is
-minutes of device time — run this once per machine (or CI cache restore)
-and every bench/training launch afterwards starts instantly.
+$RED_GYM_TPU_TEXTURE_CACHE (default ~/.cache/red_gym_tpu).  The default
+build marches ~13 rays per edge theta-bin pair (edge localization + width
+probes + base row); on the CPU a large map takes minutes — run this once
+per machine (or CI cache restore) and later launches start instantly.
 
 Usage:
-    python tools/prebuild_textures.py            # bench configs, example map
-    RGT_PLATFORM=cpu python tools/prebuild_textures.py   # no TPU needed
+    python tools/prebuild_textures.py [map.yaml ...]   # default: track_0007
+    JAX_PLATFORMS=cpu python tools/prebuild_textures.py
 """
 
 import os
@@ -18,8 +17,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-from red_gym_tpu.utils import platform as _platform  # noqa: E402
-_platform.apply()
 
 
 def main():
